@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py [--profile]
+
+Run from the root of a checkout on a machine with one CUDA card. Phases,
+in order, each printing one JSON line with its seconds:
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build: the pyramid kernels (``nvcc``) and the TIFF writer (``g++``),
+   built together from the sources in the checkout;
+3. kernels: K1 (pyrDown) and K2 (pyrUp) held against their plain PyTorch
+   versions on the card, at the main path's shapes and at odd and tiny
+   sizes, with their times beside the bound and a PyTorch library call;
+4. reference: the whole pipeline on a small input, on the card and on the
+   CPU (plain versions), whose TIFFs must agree within 1 LSB;
+5. main path: ``SuperResolutionPipeline.process()`` for a 720x1280 input
+   to the 100MP preset (12245x6887) with provider ``quality`` and
+   ``edsr_xl`` at its full width (16 blocks, 128 features) on a [3, 3]
+   ladder, weights seeded and the tail non-zero; run once to warm up, with
+   every K1/K2 launch also held against the plain version on the same
+   input (the main path's own shapes and data: tile levels, canvas
+   collapse steps and finalize bands), and once with the launch counts
+   reset, which must show both kernels.
+
+With ``--profile`` it then runs the main path once more under
+``torch.profiler`` and prints the device's busy share, per stage and in
+all, its time by kernel and by op, and the in-place adds by input shape.
+Then it prints a ``done`` line with the total seconds, the kernels' JSON
+line, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
+last line. Without a CUDA card, or without the port beside it, it exits
+with code 2 and prints no result. Outputs go to a temporary directory
+that is removed at the end.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+# Tolerance of a kernel against its plain version on the same inputs
+# (data in [0, 255]): float32 rounding differs where nvcc contracts a
+# multiply and an add into one FMA; 2.55e-4 is 1e-6 of the data range.
+KERNEL_ATOL = 2.55e-4
+# Published H100 SXM rates (NVIDIA data sheet): memory and float32
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+MAIN_H, MAIN_W = 720, 1280
+MAIN_OUT = (12245, 6887)  # (width, height) of the 100MP preset at 16:9
+
+
+def emit(phase: str, t0: float, **kw) -> None:
+    print(json.dumps({"phase": phase, "seconds": round(time.time() - t0, 3), **kw}),
+          flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def synthetic_image(h: int, w: int, seed: int) -> np.ndarray:
+    """Photo-like test input in [0, 255]: smooth colour fields, edges,
+    texture and sensor noise, all from ``seed``."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.zeros((h, w, 3), np.float32)
+    for c in range(3):
+        fy, fx = rng.uniform(0.5, 3.0, 2) * np.pi / np.array([h, w])
+        img[..., c] = 128 + 60 * np.sin(fy * y + rng.uniform(0, 6)) * np.cos(fx * x)
+    for _ in range(12):  # hard-edged discs
+        cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(0.03, 0.2) * h
+        img[(y - cy) ** 2 + (x - cx) ** 2 < r * r] = rng.uniform(0, 255, 3)
+    img += 12 * np.sin(0.9 * x + 0.4 * y)[..., None]  # fine texture
+    img += rng.normal(0, 3, img.shape)
+    return np.clip(img, 0, 255).astype(np.float32)
+
+
+def check_kernels(torch, K) -> dict:
+    """Hold K1/K2 against their plain versions; time both at the main
+    path's largest shapes. Returns the per-kernel numbers."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 255.0
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    worst = {"pyr_down": 0.0, "pyr_up": 0.0}
+    # Odd, even and tiny sizes, and channel counts other than 3.
+    for shape in [(2, 63, 129, 3), (1, 5, 7, 3), (1, 1, 1, 3), (3, 2, 3, 1),
+                  (2, 8, 9, 5), (1, 33, 32, 3)]:
+        x = rand(*shape)
+        worst["pyr_down"] = max(worst["pyr_down"], err(K.pyr_down(x), K.pyr_down_plain(x)))
+    for shape, dst in [((2, 33, 65, 3), (65, 129)), ((2, 33, 65, 3), (66, 130)),
+                       ((2, 33, 65, 3), (64, 128)), ((1, 1, 1, 3), (1, 1)),
+                       ((1, 1, 1, 3), (2, 2)), ((1, 3, 5, 1), (5, 9)),
+                       ((1, 3, 5, 5), (6, 10)), ((1, 17, 16, 3), (34, 31))]:
+        x = rand(*shape)
+        worst["pyr_up"] = max(worst["pyr_up"], err(K.pyr_up(x, dst), K.pyr_up_plain(x, dst)))
+
+    torch.backends.cudnn.allow_tf32 = False
+    g1 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=dev) / 16.0
+    g2 = torch.outer(g1, g1)
+
+    # K1 at level 0 of the tile batch: [6,4608,4608,3] -> [6,2304,2304,3].
+    x = rand(6, 4608, 4608, 3)
+    worst["pyr_down"] = max(worst["pyr_down"], err(K.pyr_down(x), K.pyr_down_plain(x)))
+    planes = x.permute(0, 3, 1, 2).reshape(18, 1, 4608, 4608).contiguous()
+    conv = torch.nn.Conv2d(1, 1, 5, stride=2, padding=2, padding_mode="reflect",
+                           bias=False).to(dev)
+    conv.weight.data.copy_(g2[None, None])
+    with torch.inference_mode():
+        lib_err = err(conv(planes).reshape(6, 3, 2304, 2304).permute(0, 2, 3, 1),
+                      K.pyr_down_plain(x))
+        down = {
+            "ms": cuda_ms(lambda: K.pyr_down(x), 50),
+            "plain_ms": cuda_ms(lambda: K.pyr_down_plain(x), 5),
+            "library_ms": cuda_ms(lambda: conv(planes), 20),
+            "library_call": "nn.Conv2d(5x5, stride 2, padding_mode='reflect') on [18,1,4608,4608]",
+            "library_max_abs_err": lib_err,
+            "bytes": (x.numel() + x.numel() // 4) * 4,
+            # vertical pass: 9 FLOP per [H/2, W] sample; horizontal: 9 per output
+            "flops": 9 * (6 * 2304 * 4608 * 3 + 6 * 2304 * 2304 * 3),
+            "shape": "[6,4608,4608,3] -> [6,2304,2304,3]",
+        }
+    del planes
+    # K2 at the finest Laplacian level: [6,2304,2304,3] -> [6,4608,4608,3].
+    xs = rand(6, 2304, 2304, 3)
+    worst["pyr_up"] = max(worst["pyr_up"], err(K.pyr_up(xs, (4608, 4608)),
+                                               K.pyr_up_plain(xs, (4608, 4608))))
+    planes = xs.permute(0, 3, 1, 2).reshape(18, 1, 2304, 2304).contiguous()
+    wt = (4.0 * g2)[None, None]
+    with torch.inference_mode():
+        up = {
+            "ms": cuda_ms(lambda: K.pyr_up(xs, (4608, 4608)), 50),
+            "plain_ms": cuda_ms(lambda: K.pyr_up_plain(xs, (4608, 4608)), 5),
+            "library_ms": cuda_ms(
+                lambda: F.conv_transpose2d(planes, wt, stride=2, padding=2,
+                                           output_padding=1), 20),
+            "library_call": "F.conv_transpose2d(5x5, stride 2) on [18,1,2304,2304]; "
+                            "zero borders where pyrUp reflects",
+            "bytes": (xs.numel() + xs.numel() * 4) * 4,
+            # ~3 FLOP per sample in each pass (even: 4, odd: 2)
+            "flops": 3 * (6 * 4608 * 2304 * 3 + 6 * 4608 * 4608 * 3),
+            "shape": "[6,2304,2304,3] -> [6,4608,4608,3]",
+        }
+    del x, xs, planes
+    torch.cuda.empty_cache()
+    out = {}
+    for name, d in (("pyr_down", down), ("pyr_up", up)):
+        t_bytes = d["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = d["flops"] / FP32_FLOPS * 1e3
+        d["bound_ms"] = max(t_bytes, t_ops)
+        d["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        d["max_abs_err"] = worst[name]
+        if worst[name] > KERNEL_ATOL:
+            fail(f"{name} kernel disagrees with its plain version: "
+                 f"max abs err {worst[name]} > {KERNEL_ATOL}")
+        out[name] = d
+    return out
+
+
+@contextlib.contextmanager
+def held_against_plain(K):
+    """While open, every pyrDown/pyrUp call the pipeline makes through
+    ``ops/pyramid.py`` and ``ops/blend.py`` also runs the plain version on
+    the same input. Yields the records, (name, input shape, output shape,
+    max abs err) per call; the comparison itself launches nothing the
+    counts see beyond the pipeline's own call."""
+    import srs_tpu_torch.ops.blend as blend
+    import srs_tpu_torch.ops.pyramid as pyramid
+
+    records = []
+
+    def down(x):
+        out = K.pyr_down(x)
+        records.append(("pyr_down", list(x.shape), list(out.shape),
+                        float((out - K.pyr_down_plain(x)).abs().max())))
+        return out
+
+    def up(x, dst_hw=None):
+        out = K.pyr_up(x, dst_hw)
+        records.append(("pyr_up", list(x.shape), list(out.shape),
+                        float((out - K.pyr_up_plain(x, dst_hw)).abs().max())))
+        return out
+
+    sites = [(pyramid, "pyr_down", down), (pyramid, "pyr_up", up), (blend, "pyr_up", up)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
+    for mod, attr, fn in sites:
+        setattr(mod, attr, fn)
+    try:
+        yield records
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def reference_check(torch, tmp: str) -> dict:
+    """The pipeline on a small input, on the card and on the CPU with the
+    plain versions and float32 convolutions (TF32 off): same TIFF within
+    1 LSB."""
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.models.registry import seeded_params
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    image = synthetic_image(80, 96, seed=3)
+    weights = {("edsr_m", 3): seeded_params("edsr_m", 3, seed=5)}
+    outs = {}
+    for device in ("cuda", "cpu"):
+        cfg = PipelineConfig(block_size=64, target_resolution="864x720",
+                             quality_model="edsr_m", compute_dtype="float32",
+                             device=device)
+        path = os.path.join(tmp, f"ref_{device}.tiff")
+        res = SuperResolutionPipeline(cfg, weights).process(image, path)
+        if not res.success:
+            fail(f"reference run on {device} failed: {res.error_message}")
+        outs[device] = read_tiff(path).astype(np.int16)
+    torch.backends.cudnn.allow_tf32 = True
+    diff = np.abs(outs["cuda"] - outs["cpu"])
+    if outs["cuda"].shape != (720, 864, 3) or diff.max() > 1:
+        fail(f"card and CPU disagree on the small input: shape {outs['cuda'].shape}, "
+             f"max diff {diff.max()} LSB")
+    return {"shape": list(outs["cuda"].shape), "max_lsb": int(diff.max()),
+            "frac_differing": float((diff > 0).mean())}
+
+
+def main_path(torch, K, tmp: str):
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.models.registry import seeded_params
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+
+    cfg = PipelineConfig(
+        block_size=512, overlap_ratio=0.2, target_resolution="100MP",
+        provider="quality", quality_model="edsr_xl", ibp_steps=4, bit_depth=8,
+        device="cuda",
+    )
+    # Seeded weights at edsr_xl's full width for every scale the reference
+    # ships trained (x2, x3, x4), so the ladder choice matches it.
+    weights = {("edsr_xl", s): seeded_params("edsr_xl", s, seed=10 + s) for s in (2, 3, 4)}
+    pipe = SuperResolutionPipeline(cfg, weights)
+    image = synthetic_image(MAIN_H, MAIN_W, seed=7)
+    path = os.path.join(tmp, "out_100mp.tiff")
+
+    K.reset_launches()
+    with held_against_plain(K) as records:
+        warm = pipe.process(image, path)
+    if not warm.success:
+        fail(f"warm-up process() failed: {warm.error_message}")
+    os.remove(path)
+    # Every launch of the warm-up run was held against its plain version.
+    held = {}
+    for name, shape_in, shape_out, e in records:
+        h = held.setdefault(name, {"calls": 0, "max_abs_err": 0.0, "shapes": []})
+        h["calls"] += 1
+        h["max_abs_err"] = max(h["max_abs_err"], e)
+        h["shapes"].append([shape_in, shape_out, e])
+    for name, n in K.LAUNCHES.items():
+        h = held.get(name, {"calls": 0, "max_abs_err": 0.0})
+        if n == 0 or h["calls"] != n:
+            fail(f"{name}: {n} launches in the warm-up run, {h['calls']} held "
+                 "against the plain version")
+        if h["max_abs_err"] > KERNEL_ATOL:
+            fail(f"{name} disagrees with its plain version on the main path: "
+                 f"max abs err {h['max_abs_err']} > {KERNEL_ATOL}")
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.time()
+    res = pipe.process(image, path)
+    elapsed = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    if not res.success:
+        fail(f"process() failed: {res.error_message}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"the main path never launched kernel {name}")
+    if pipe.last_run_info["ladder"] != [3, 3]:
+        fail(f"ladder {pipe.last_run_info['ladder']} != [3, 3]")
+    size = os.path.getsize(path)
+    out = read_tiff(path)
+    w, h = MAIN_OUT
+    if out.shape != (h, w, 3) or out.dtype != np.uint8:
+        fail(f"output {out.shape} {out.dtype} != ({h}, {w}, 3) uint8")
+    # Content check: the output's per-channel means follow the input's, and
+    # the net changed pixels away from plain bicubic (a non-zero tail).
+    mean_in, mean_out = image.mean(axis=(0, 1)), out.mean(axis=(0, 1), dtype=np.float64)
+    if np.abs(mean_in - mean_out).max() > 10.0 or out.std() < 10:
+        fail(f"output statistics off: input means {mean_in}, output means {mean_out}, "
+             f"std {out.std()}")
+    return {
+        "stage_times": res.stage_times,
+        "warmup_stage_times": warm.stage_times,
+        "elapsed_s": elapsed,
+        "output_mp": w * h / 1e6,
+        "mp_per_s": w * h / 1e6 / elapsed,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "tiff_bytes": size,
+        "ladder": pipe.last_run_info["ladder"],
+        "num_tiles": pipe.last_run_info["num_tiles"],
+        "launches": launches,
+        "held_against_plain": held,
+        "input_means": [float(v) for v in mean_in],
+        "output_means": [float(v) for v in mean_out],
+        "save_breakdown": pipe.last_run_info["save_breakdown"],
+    }, pipe, image
+
+
+def profile_main_path(torch, pipe, image, tmp: str) -> dict:
+    """One more main-path run under torch.profiler: the device's busy share
+    of the wall time, per pipeline stage and in all, and its time by kernel
+    and by launching op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    path = os.path.join(tmp, "out_profiled.tiff")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.time()
+        res = pipe.process(image, path)
+        wall = time.time() - t0
+    if not res.success:
+        fail(f"profiled process() failed: {res.error_message}")
+    spans, by_name, windows = [], {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith("stage:"):  # the pipeline's ranges on the device timeline
+            windows[e.name[6:]] = (e.time_range.start, e.time_range.end)
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy = []  # union of kernel and copy intervals
+    for a, b in sorted(spans):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    busy_us = sum(b - a for a, b in busy)
+    stages = {
+        name: {"window_ms": (w1 - w0) / 1e3,
+               "busy_ms": sum(max(0, min(b, w1) - max(a, w0)) for a, b in busy) / 1e3}
+        for name, (w0, w1) in windows.items()
+    }
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+
+    def self_dev_ms(e):
+        us = getattr(e, "self_device_time_total", None)
+        return (us if us is not None else getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    ops = sorted(((e.key, self_dev_ms(e), e.count) for e in prof.key_averages()
+                  if e.key.startswith("aten::") and self_dev_ms(e) > 0),
+                 key=lambda t: -t[1])[:12]
+    # In-place adds by input shapes: a [N, C, H, W] output beside a [C]
+    # bias names the convolutions' bias add.
+    adds = sorted(((str(e.input_shapes), self_dev_ms(e), e.count)
+                   for e in prof.key_averages(group_by_input_shape=True)
+                   if e.key == "aten::add_" and self_dev_ms(e) > 0),
+                  key=lambda t: -t[1])[:6]
+    return {
+        "wall_s": wall,
+        "stage_times": res.stage_times,
+        "device_events": len(spans),
+        "device_busy_s": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "stage_device": stages,
+        "top_device_ms": [[name[:140], round(ms, 3), n] for name, (ms, n) in top],
+        "top_ops_self_device_ms": [[k, round(ms, 3), n] for k, ms, n in ops],
+        "add_by_input_shapes": [[k[:200], round(ms, 3), n] for k, ms, n in adds],
+    }
+
+
+def main() -> int:
+    t_start = time.time()
+    want_profile = "--profile" in sys.argv[1:]
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; this check runs on the card",
+              file=sys.stderr)
+        return 2
+    try:
+        import srs_tpu_torch.ops.cuda.pyramid as K
+        from srs_tpu_torch.io import native
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable ({e}); run from the root of "
+              "a checkout", file=sys.stderr)
+        return 2
+
+    t0 = time.time()
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    emit("device", t0, nvidia_smi=smi, kind=kind, count=count,
+         torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.time()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(K.load_library), pool.submit(native.load_library)]
+        for job in jobs:
+            job.result()
+    emit("build", t0)
+
+    tmp = tempfile.mkdtemp(prefix="srs_chip_smoke_")
+    try:
+        t0 = time.time()
+        knums = check_kernels(torch, K)
+        emit("kernels", t0, tolerance=KERNEL_ATOL, **knums)
+
+        t0 = time.time()
+        emit("reference", t0, **reference_check(torch, tmp))
+
+        t0 = time.time()
+        main, pipe, image = main_path(torch, K, tmp)
+        emit("main_path", t0, **main)
+
+        if want_profile:
+            t0 = time.time()
+            emit("profile", t0, **profile_main_path(torch, pipe, image, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    kernels = []
+    for name, line in (("pyr_down", 71), ("pyr_up", 119)):
+        d = knums[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "srs_tpu_torch/csrc/pyramid.cu",
+            "replaces": f"srs_tpu/ops/pallas/pyramid_pallas.py:{line}",
+            "launches": main["launches"][name],
+            "max_abs_err": max(d["max_abs_err"],
+                               main["held_against_plain"][name]["max_abs_err"]),
+            "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+        })
+    emit("done", t_start)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

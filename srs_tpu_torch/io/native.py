@@ -1,0 +1,126 @@
+"""The streamed TIFF writer, bound with ctypes (port of
+``srs_tpu/io/native.py:145-199``).
+
+The library is compiled from the repository's ``native/tiffio.cpp`` with
+``g++ ... -lz`` into the port's build directory (``utils/build.py``); the
+port never writes into ``native/``. Strips deflate on a C++ thread pool
+while later bands are still being computed.
+
+:func:`read_tiff` reads back what the writer wrote (classic TIFF, striped,
+uncompressed or deflate, 8/16-bit), with numpy and zlib only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import struct
+import threading
+import zlib
+from typing import Optional
+
+import numpy as np
+
+from ..utils.build import PACKAGE_DIR, build_shared
+
+__all__ = ["TiffStreamWriter", "read_tiff", "load_library"]
+
+SOURCE = os.path.join(os.path.dirname(PACKAGE_DIR), "native", "tiffio.cpp")
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once) and load the TIFF writer."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+            path = build_shared(
+                "srs_tiff", [SOURCE],
+                lambda out: [cxx, "-O3", "-fPIC", "-std=c++17", "-pthread", "-shared",
+                             "-o", out, SOURCE, "-lz"],
+            )
+            lib = ctypes.CDLL(path)
+            i64 = ctypes.c_int64
+            lib.srs_tiff_begin.restype = ctypes.c_void_p
+            lib.srs_tiff_begin.argtypes = [ctypes.c_char_p, i64, i64, i64, i64, i64, i64]
+            lib.srs_tiff_write_rows.restype = i64
+            lib.srs_tiff_write_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i64]
+            lib.srs_tiff_end.restype = i64
+            lib.srs_tiff_end.argtypes = [ctypes.c_void_p]
+            _lib = lib
+    return _lib
+
+
+class TiffStreamWriter:
+    """Incremental TIFF writer: feed (rows, W, C) bands in order."""
+
+    def __init__(self, path: str, h: int, w: int, channels: int = 3,
+                 bit_depth: int = 8, compress: bool = True, level: int = 1):
+        lib = load_library()
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self._lib = lib
+        self._bit_depth = bit_depth
+        self._ctx = lib.srs_tiff_begin(
+            path.encode(), h, w, channels, bit_depth, 1 if compress else 0, level
+        )
+        if not self._ctx:
+            raise IOError("srs_tiff_begin failed")
+
+    def write(self, rows: np.ndarray) -> None:
+        arr = np.ascontiguousarray(rows)
+        expect = np.uint16 if self._bit_depth == 16 else np.uint8
+        if arr.dtype != expect:
+            raise TypeError(f"rows must be {expect}, got {arr.dtype}")
+        rc = self._lib.srs_tiff_write_rows(
+            self._ctx, arr.ctypes.data_as(ctypes.c_void_p), arr.shape[0]
+        )
+        if rc < 0:
+            raise IOError(f"srs_tiff_write_rows failed ({rc})")
+
+    def close(self) -> int:
+        if self._ctx is None:
+            return 0
+        rc = self._lib.srs_tiff_end(self._ctx)
+        self._ctx = None
+        if rc < 0:
+            raise IOError(f"srs_tiff_end failed ({rc})")
+        return int(rc)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def read_tiff(path: str) -> np.ndarray:
+    """(H, W, C) uint8/uint16 array of a striped little-endian TIFF."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"II*\x00":
+        raise ValueError(f"{path}: not a little-endian classic TIFF")
+    (ifd,) = struct.unpack_from("<I", data, 4)
+    (count,) = struct.unpack_from("<H", data, ifd)
+    sizes = {3: 2, 4: 4}
+    tags = {}
+    for e in range(count):
+        tag, typ, n, value = struct.unpack_from("<HHII", data, ifd + 2 + 12 * e)
+        fmt = "<" + ("H" if typ == 3 else "I") * n
+        if n * sizes[typ] <= 4:
+            vals = struct.unpack_from(fmt, data, ifd + 2 + 12 * e + 8)
+        else:
+            vals = struct.unpack_from(fmt, data, value)
+        tags[tag] = vals
+    w, h = tags[256][0], tags[257][0]
+    channels = tags.get(277, (1,))[0]
+    bits = tags[258][0]
+    compressed = tags.get(259, (1,))[0] == 8
+    raw = b"".join(
+        zlib.decompress(data[o : o + n]) if compressed else data[o : o + n]
+        for o, n in zip(tags[273], tags[279])
+    )
+    dtype = np.uint16 if bits == 16 else np.uint8
+    return np.frombuffer(raw, dtype=dtype).reshape(h, w, channels)

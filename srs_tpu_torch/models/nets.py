@@ -1,0 +1,120 @@
+"""EDSR quality net (port of ``srs_tpu/models/nets.py:37-94,150-214``).
+
+A bicubic-residual EDSR: the output is bicubic upsampling plus the net's
+residual, so a zero tail reproduces bicubic exactly. Inputs and outputs
+are NHWC float32 in [0, 255], as in the reference. The convolutions run
+in ``dtype`` on parameters held in that type.
+
+Two layout rules hold against the flax reference (handled by
+``registry.convert_flax_params``):
+
+- flax kernels are HWIO, torch's are OIHW;
+- the reference's ``depth_to_space`` orders channels as (s1, s2, c) and
+  ``F.pixel_shuffle`` as (c, s1, s2): the output channels of every conv
+  that feeds a shuffle are permuted when converting.
+
+Inside the net the activations are NCHW views of NHWC memory (torch's
+channels_last), which cuDNN runs directly.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.resize import resize_bicubic_up
+
+__all__ = ["EDSR", "depth_to_space", "shuffle_channel_order", "_shuffle_factors"]
+
+
+def depth_to_space(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Reference pixel shuffle on NHWC: [N, H, W, C*s^2] -> [N, H*s, W*s, C]
+    with channels ordered (s1, s2, c)."""
+    n, h, w, cc = x.shape
+    c = cc // (scale * scale)
+    x = x.reshape(n, h, w, scale, scale, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h * scale, w * scale, c)
+
+
+def shuffle_channel_order(c: int, s: int) -> torch.Tensor:
+    """Index ``p`` with ``torch_channel[k] = flax_channel[p[k]]``: torch's
+    channel ``ch*s*s + i*s + j`` is the reference's ``(i*s + j)*c + ch``."""
+    k = torch.arange(c * s * s)
+    ch, rem = k // (s * s), k % (s * s)
+    return rem * c + ch
+
+
+def _shuffle_factors(scale: int) -> List[int]:
+    """Decompose a scale into {2, 3} pixel-shuffle stages (4 -> 2x2)."""
+    factors = []
+    s = scale
+    while s % 2 == 0 and s > 1:
+        factors.append(2)
+        s //= 2
+    while s % 3 == 0 and s > 1:
+        factors.append(3)
+        s //= 3
+    if s != 1:
+        raise ValueError(f"unsupported scale {scale}: must factor into 2s and 3s")
+    return factors
+
+
+class _ResBlock(nn.Module):
+    def __init__(self, features: int, res_scale: float):
+        super().__init__()
+        self.conv0 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
+        self.res_scale = res_scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(F.relu(self.conv0(x), inplace=True))
+        return x + h * self.res_scale
+
+
+class EDSR(nn.Module):
+    """EDSR-style quality net (Lim et al. 2017 architecture family)."""
+
+    def __init__(
+        self,
+        scale: int = 2,
+        features: int = 64,
+        num_blocks: int = 8,
+        channels: int = 3,
+        res_scale: float = 0.1,
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        self.scale = scale
+        self.features = features
+        self.channels = channels
+        self.dtype = dtype
+        self.head = nn.Conv2d(channels, features, 3, padding=1)
+        self.blocks = nn.ModuleList(_ResBlock(features, res_scale) for _ in range(num_blocks))
+        self.body_out = nn.Conv2d(features, features, 3, padding=1)
+        factors = _shuffle_factors(scale) if scale > 1 else []
+        self.factors = factors
+        self.up_convs = nn.ModuleList(
+            nn.Conv2d(features, features * f * f, 3, padding=1) for f in factors[:-1]
+        )
+        tail_out = channels * factors[-1] ** 2 if factors else channels
+        self.tail = nn.Conv2d(features, tail_out, 3, padding=1)
+        self.to(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        base = resize_bicubic_up(x, self.scale) if self.scale > 1 else x
+        h = (x / 255.0 - 0.5).to(self.dtype).permute(0, 3, 1, 2)
+        h0 = self.head(h)
+        h = h0
+        for block in self.blocks:
+            h = block(h)
+        h = self.body_out(h) + h0
+        for conv, f in zip(self.up_convs, self.factors[:-1]):
+            h = F.pixel_shuffle(conv(h), f)
+        r = self.tail(h)
+        if self.factors:
+            r = F.pixel_shuffle(r, self.factors[-1])
+        return base + r.permute(0, 2, 3, 1).float() * 255.0

@@ -1,0 +1,58 @@
+"""Build the package's native sources into shared libraries at first use.
+
+Each library is compiled from the sources in this checkout into
+``srs_tpu_torch/_build/`` (listed in ``.gitignore``; override with
+``SRS_TORCH_BUILD_DIR``). The file name carries a digest of the sources
+and the command, so an edited source or flag builds anew and a stale
+library is never loaded. A build writes to a temporary name and renames
+it into place, so concurrent processes never load a half-written file.
+Threads building different libraries run their compilers in parallel.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import subprocess
+import threading
+from typing import Callable, Dict, List, Sequence
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
+
+
+def build_dir() -> str:
+    path = os.environ.get("SRS_TORCH_BUILD_DIR") or os.path.join(PACKAGE_DIR, "_build")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def build_shared(
+    name: str, sources: Sequence[str], command: Callable[[str], List[str]]
+) -> str:
+    """Path of ``lib<name>-<digest>.so`` built from ``sources``.
+
+    ``command(out_path)`` returns the compiler's argument list. Raises
+    ``RuntimeError`` with the compiler's output when the build fails.
+    """
+    digest = hashlib.sha256()
+    for src in sources:
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(command("OUT")).encode())
+    out = os.path.join(build_dir(), f"lib{name}-{digest.hexdigest()[:16]}.so")
+    with _locks_guard:
+        lock = _locks.setdefault(out, threading.Lock())
+    with lock:
+        if os.path.exists(out):
+            return out
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.run(command(tmp), capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {name} failed ({' '.join(command(tmp))}):\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    return out
