@@ -8,10 +8,12 @@ in order, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the pyramid kernels (``nvcc``) and the TIFF writer (``g++``),
-   built together from the sources in the checkout;
+   built together from the sources in the checkout; the kernels'
+   registers and spills as ``ptxas -v`` prints them;
 3. kernels: K1 (pyrDown) and K2 (pyrUp) held against their plain PyTorch
-   versions on the card, at the main path's shapes and at odd and tiny
-   sizes, with their times beside the bound and a PyTorch library call;
+   versions on the card, at the main path's shapes, at odd and tiny
+   sizes, and for K2 at the edges of its row-streaming blocks, with their
+   times beside the bound and a PyTorch library call;
 4. reference: the whole pipeline on a small input, on the card and on the
    CPU (plain versions), whose TIFFs must agree within 1 LSB;
 5. main path: ``SuperResolutionPipeline.process()`` for a 720x1280 input
@@ -21,16 +23,21 @@ in order, each printing one JSON line with its seconds:
    every K1/K2 launch also held against the plain version on the same
    input (the main path's own shapes and data: tile levels, canvas
    collapse steps and finalize bands), and once with the launch counts
-   reset, which must show both kernels.
+   reset, which must show both kernels;
+6. kernel_shapes: K2 timed at every distinct (input, output) shape that
+   the warm-up run launched, each with its launches, bound and share of
+   the bound.
 
 With ``--profile`` it then runs the main path once more under
 ``torch.profiler`` and prints the device's busy share, per stage and in
-all, its time by kernel and by op, and the in-place adds by input shape.
+all, its time by kernel (K1 and K2 always) and by op, and the in-place
+adds by input shape.
 Then it prints a ``done`` line with the total seconds, the kernels' JSON
-line, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
-last line. Without a CUDA card, or without the port beside it, it exits
-with code 2 and prints no result. Outputs go to a temporary directory
-that is removed at the end.
+line (K2's entry with the ``shapes`` of phase 6), the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero before the last line. Without a CUDA card, or without the port
+beside it, it exits with code 2 and prints no result. Outputs go to a
+temporary directory that is removed at the end.
 """
 
 from __future__ import annotations
@@ -56,6 +63,27 @@ KERNEL_ATOL = 2.55e-4
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
+# K2 cases at the edges of its blocking (a block covers 128 source
+# columns, 256 output, and 32 source rows, 64 output): sizes at those
+# boundaries and one either side, odd n and n = 2m - 2, rows whose
+# n_w * C is not a multiple of 4 (scalar stores), C = 1, 3 and 5,
+# batch 1 and 6, and rank-3 inputs. (input shape, output (h, w)).
+PYR_UP_EDGE_CASES = [
+    ((1, 32, 128, 3), (64, 256)),
+    ((1, 33, 129, 3), (65, 257)),
+    ((1, 31, 127, 3), (60, 252)),
+    ((6, 64, 256, 3), (127, 511)),
+    ((6, 65, 255, 3), (128, 508)),
+    ((1, 32, 129, 1), (63, 257)),
+    ((2, 16, 128, 1), (32, 256)),
+    ((2, 17, 130, 5), (34, 259)),
+    ((1, 96, 384, 5), (191, 768)),
+    ((33, 128, 3), (65, 255)),
+    ((64, 257, 3), (128, 512)),
+    ((1, 1, 300, 3), (1, 599)),
+    ((1, 300, 1, 3), (599, 1)),
+]
+
 MAIN_H, MAIN_W = 720, 1280
 MAIN_OUT = (12245, 6887)  # (width, height) of the 100MP preset at 16:9
 
@@ -75,6 +103,39 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: int, flops: int) -> tuple:
+    """Least milliseconds the card could take, and what bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def pyr_up_work(shape_in, shape_out) -> tuple:
+    """Bytes (one read of the input, one write of the output) and FLOP of
+    K2: ~3 FLOP per sample in each pass (even: 4, odd: 2), the vertical
+    pass on [.., n_h, m_w, C], the horizontal on the output."""
+    n_in, n_out = int(np.prod(shape_in)), int(np.prod(shape_out))
+    n_vert = n_out // shape_out[-2] * shape_in[-2]
+    return (n_in + n_out) * 4, 3 * (n_vert + n_out)
+
+
+def ptxas_summary(log_path: str) -> list:
+    """[kernel, registers, spill stores, spill loads] per entry function
+    of a library built with ``-Xptxas -v``."""
+    rows, cur = [], None
+    with open(log_path) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                cur = [line.split("'")[1], None, None, None]
+                rows.append(cur)
+            elif cur is not None and "spill stores" in line:
+                words = line.split()
+                cur[2], cur[3] = int(words[4]), int(words[8])
+            elif cur is not None and "Used" in line and "registers" in line:
+                cur[1] = int(line.split("Used")[1].split()[0])
+    return rows
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -132,7 +193,8 @@ def check_kernels(torch, K) -> dict:
     for shape, dst in [((2, 33, 65, 3), (65, 129)), ((2, 33, 65, 3), (66, 130)),
                        ((2, 33, 65, 3), (64, 128)), ((1, 1, 1, 3), (1, 1)),
                        ((1, 1, 1, 3), (2, 2)), ((1, 3, 5, 1), (5, 9)),
-                       ((1, 3, 5, 5), (6, 10)), ((1, 17, 16, 3), (34, 31))]:
+                       ((1, 3, 5, 5), (6, 10)), ((1, 17, 16, 3), (34, 31)),
+                       *PYR_UP_EDGE_CASES]:
         x = rand(*shape)
         worst["pyr_up"] = max(worst["pyr_up"], err(K.pyr_up(x, dst), K.pyr_up_plain(x, dst)))
 
@@ -177,25 +239,46 @@ def check_kernels(torch, K) -> dict:
                                            output_padding=1), 20),
             "library_call": "F.conv_transpose2d(5x5, stride 2) on [18,1,2304,2304]; "
                             "zero borders where pyrUp reflects",
-            "bytes": (xs.numel() + xs.numel() * 4) * 4,
-            # ~3 FLOP per sample in each pass (even: 4, odd: 2)
-            "flops": 3 * (6 * 4608 * 2304 * 3 + 6 * 4608 * 4608 * 3),
             "shape": "[6,2304,2304,3] -> [6,4608,4608,3]",
         }
+        up["bytes"], up["flops"] = pyr_up_work(xs.shape, (6, 4608, 4608, 3))
     del x, xs, planes
     torch.cuda.empty_cache()
     out = {}
     for name, d in (("pyr_down", down), ("pyr_up", up)):
-        t_bytes = d["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = d["flops"] / FP32_FLOPS * 1e3
-        d["bound_ms"] = max(t_bytes, t_ops)
-        d["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        d["bound_ms"], d["bound_by"] = bound(d["bytes"], d["flops"])
         d["max_abs_err"] = worst[name]
         if worst[name] > KERNEL_ATOL:
             fail(f"{name} kernel disagrees with its plain version: "
                  f"max abs err {worst[name]} > {KERNEL_ATOL}")
         out[name] = d
     return out
+
+
+def time_pyr_up_shapes(torch, K, held: dict) -> list:
+    """K2 at every distinct (input, output) shape of the main path's
+    warm-up run, on random data of that shape: its launches per call, the
+    worst error held against the plain version there, mean milliseconds
+    (CUDA events), bound and share of the bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    by_shape = {}
+    for shape_in, shape_out, e in held["pyr_up"]["shapes"]:
+        n, worst = by_shape.get((tuple(shape_in), tuple(shape_out)), (0, 0.0))
+        by_shape[(tuple(shape_in), tuple(shape_out))] = (n + 1, max(worst, e))
+    rows = []
+    for (shape_in, shape_out), (n, worst) in by_shape.items():
+        x = torch.rand(shape_in, generator=gen, device=dev) * 255.0
+        dst = shape_out[-3:-1]
+        nbytes, flops = pyr_up_work(shape_in, shape_out)
+        ms = cuda_ms(lambda: K.pyr_up(x, dst), max(10, min(200, int(4e9 // nbytes))))
+        bound_ms, bound_by = bound(nbytes, flops)
+        rows.append({"in": list(shape_in), "out": list(shape_out), "launches": n,
+                     "max_abs_err": worst, "ms": ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "pct_of_bound": 100.0 * bound_ms / ms})
+        del x
+    torch.cuda.empty_cache()
+    return rows
 
 
 @contextlib.contextmanager
@@ -382,6 +465,11 @@ def profile_main_path(torch, pipe, image, tmp: str) -> dict:
         for name, (w0, w1) in windows.items()
     }
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    # K1/K2 in all, whether or not they are among the largest.
+    pyramid = {}
+    for k in ("pyr_down", "pyr_up"):
+        hits = [v for n, v in by_name.items() if f"{k}_kernel" in n]
+        pyramid[k] = [sum(ms for ms, _ in hits), sum(c for _, c in hits)]
 
     def self_dev_ms(e):
         us = getattr(e, "self_device_time_total", None)
@@ -404,6 +492,7 @@ def profile_main_path(torch, pipe, image, tmp: str) -> dict:
         "device_busy_share": busy_us / 1e6 / wall,
         "stage_device": stages,
         "top_device_ms": [[name[:140], round(ms, 3), n] for name, (ms, n) in top],
+        "pyramid_kernels_ms": pyramid,
         "top_ops_self_device_ms": [[k, round(ms, 3), n] for k, ms, n in ops],
         "add_by_input_shapes": [[k[:200], round(ms, 3), n] for k, ms, n in adds],
     }
@@ -438,7 +527,7 @@ def main() -> int:
         jobs = [pool.submit(K.load_library), pool.submit(native.load_library)]
         for job in jobs:
             job.result()
-    emit("build", t0)
+    emit("build", t0, ptxas=ptxas_summary(K.load_library()._name + ".log"))
 
     tmp = tempfile.mkdtemp(prefix="srs_chip_smoke_")
     try:
@@ -452,6 +541,10 @@ def main() -> int:
         t0 = time.time()
         main, pipe, image = main_path(torch, K, tmp)
         emit("main_path", t0, **main)
+
+        t0 = time.time()
+        up_shapes = time_pyr_up_shapes(torch, K, main["held_against_plain"])
+        emit("kernel_shapes", t0, pyr_up=up_shapes)
 
         if want_profile:
             t0 = time.time()
@@ -471,6 +564,9 @@ def main() -> int:
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
         })
+    kernels[1]["shapes"] = [
+        {k: r[k] for k in ("in", "out", "launches", "ms", "bound_ms", "pct_of_bound")}
+        for r in up_shapes]
     emit("done", t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

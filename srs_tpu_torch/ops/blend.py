@@ -142,7 +142,8 @@ def laplacian_fusion_tiles(
     Levels are clamped so tile dyadic grids align with the canvas grid and
     the coarsest level's footprint stays inside the overlap band. With
     ``collapse_last=False`` returns ``(lap0, coarse)`` for
-    :func:`blend_finalize_banded`.
+    :func:`blend_finalize_banded`, or the canvas when one level is left,
+    unclipped either way.
     """
     if layout.num_tiles > 1:
         align = min(_v2(int(p)) for p in np.asarray(layout.positions).reshape(-1) if int(p) != 0)
@@ -153,8 +154,8 @@ def laplacian_fusion_tiles(
         tiles, wy, wx, layout.positions, levels, layout.padded_h, layout.padded_w,
         collapse_last=collapse_last,
     )
-    if isinstance(canvas, tuple):
-        return canvas
+    if not collapse_last:
+        return canvas  # (lap0, coarse), or the unclipped canvas at one level
     if clip_range is not None:
         canvas = torch.clamp(canvas, clip_range[0], clip_range[1])
     return canvas

@@ -7,7 +7,9 @@ Replaces the Pallas TPU kernels of ``srs_tpu/ops/pallas/pyramid_pallas.py``:
 
 The kernels are CUDA C++ for ``sm_90a`` in ``csrc/pyramid.cu``, built with
 ``nvcc`` into a shared library with a plain C interface at first use and
-bound with ``ctypes`` (no PyTorch headers, no ninja). Both are bound by
+bound with ``ctypes`` (no PyTorch headers, no ninja); ``ptxas -v``'s
+registers and spills per kernel stay beside it in ``<library>.log``. Both
+are bound by
 memory: the least time is the bytes of one read of the input and one
 write of the output over the card's memory rate (K1 at level 0 of the
 main path moves 1.91 GB, 0.57 ms at 3.35 TB/s).
@@ -49,7 +51,7 @@ __all__ = [
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "pyramid.cu")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Kernel launches since the last reset, by wrapper name. Only a launch of

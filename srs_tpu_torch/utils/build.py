@@ -33,8 +33,9 @@ def build_shared(
 ) -> str:
     """Path of ``lib<name>-<digest>.so`` built from ``sources``.
 
-    ``command(out_path)`` returns the compiler's argument list. Raises
-    ``RuntimeError`` with the compiler's output when the build fails.
+    ``command(out_path)`` returns the compiler's argument list. The
+    compiler's output goes to ``<path>.log`` beside the library. Raises
+    ``RuntimeError`` with that output when the build fails.
     """
     digest = hashlib.sha256()
     for src in sources:
@@ -54,5 +55,7 @@ def build_shared(
                 f"building {name} failed ({' '.join(command(tmp))}):\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
+        with open(f"{out}.log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     return out

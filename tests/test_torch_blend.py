@@ -76,6 +76,24 @@ def test_collapsed_clipped_canvas_matches_reference(case):
     assert float(got.min()) >= 0.0 and float(got.max()) <= 255.0
 
 
+def test_one_level_deferred_collapse_is_unclipped():
+    # Overlap 4 clamps the blend to one level; with collapse_last=False the
+    # reference returns that canvas before clip_range applies.
+    lo = compute_layout(40, 40, block_size=16, overlap_ratio=0.25)
+    ref_lo = jax_layout(40, 40, block_size=16, overlap_ratio=0.25)
+    rng = np.random.default_rng(0)
+    tiles = rng.uniform(-100, 400, (lo.num_tiles, 16, 16, 3)).astype(np.float32)
+    wy, wx = layout_weight_profiles(ref_lo)
+    got = TB.laplacian_fusion_tiles(torch.from_numpy(tiles), lo, (wy, wx), levels=6,
+                                    clip_range=(0, 255), collapse_last=False)
+    ref = JB.laplacian_fusion_tiles(jnp.asarray(tiles), None, ref_lo, levels=6,
+                                    weight_profiles=(wy, wx), clip_range=(0, 255),
+                                    collapse_last=False)
+    assert lo.num_tiles == 9 and not isinstance(ref, tuple) and not isinstance(got, tuple)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
 def _finalize_both(case, out_hw, to_uint8, bands):
     lo, got, ref = _blend_both(case)
     crop_h, crop_w = lo.image_h, lo.image_w
