@@ -12,7 +12,7 @@ in order, each printing one JSON line with its seconds:
    registers and spills as ``ptxas -v`` prints them;
 3. kernels: K1 (pyrDown) and K2 (pyrUp) held against their plain PyTorch
    versions on the card, at the main path's shapes, at odd and tiny
-   sizes, and for K2 at the edges of its row-streaming blocks, with their
+   sizes, and at the edges of their row-streaming blocks, with their
    times beside the bound and a PyTorch library call;
 4. reference: the whole pipeline on a small input, on the card and on the
    CPU (plain versions), whose TIFFs must agree within 1 LSB;
@@ -24,16 +24,16 @@ in order, each printing one JSON line with its seconds:
    input (the main path's own shapes and data: tile levels, canvas
    collapse steps and finalize bands), and once with the launch counts
    reset, which must show both kernels;
-6. kernel_shapes: K2 timed at every distinct (input, output) shape that
-   the warm-up run launched, each with its launches, bound and share of
-   the bound.
+6. kernel_shapes: K1 and K2 timed at every distinct (input, output)
+   shape that the warm-up run launched, each with its launches, bound and
+   share of the bound.
 
 With ``--profile`` it then runs the main path once more under
 ``torch.profiler`` and prints the device's busy share, per stage and in
-all, its time by kernel (K1 and K2 always) and by op, and the in-place
-adds by input shape.
+all, its time by kernel (K1 and K2 always, in all and per launch) and by
+op, and the in-place adds by input shape.
 Then it prints a ``done`` line with the total seconds, the kernels' JSON
-line (K2's entry with the ``shapes`` of phase 6), the ``nvidia-smi``
+line (each kernel's entry with its ``shapes`` of phase 6), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Without a CUDA card, or without the port
 beside it, it exits with code 2 and prints no result. Outputs go to a
@@ -84,6 +84,36 @@ PYR_UP_EDGE_CASES = [
     ((1, 300, 1, 3), (599, 1)),
 ]
 
+# K1 cases at the edges of its blocking (a block covers 128 output
+# columns, 256 source, and a run of 4 to 32 output rows that the launcher
+# sizes from the grid): sizes at those boundaries and one either side,
+# odd H and W, H or W from 1 to 5 (REFLECT_101 folds more than once),
+# rows whose W * C or output W * C is not a multiple of 4 (scalar copies
+# or stores), C = 1, 3 and 5, batch 1 and 6, rank-3 inputs, and grids of
+# under 2 x 132 blocks, which take the shortest run. Input shapes.
+PYR_DOWN_EDGE_CASES = [
+    (1, 64, 256, 3),
+    (1, 63, 255, 3),
+    (1, 65, 257, 3),
+    (6, 128, 512, 3),
+    (2, 129, 513, 1),
+    (1, 40, 260, 3),
+    (1, 40, 255, 1),
+    (2, 37, 130, 5),
+    (1, 1, 300, 3),
+    (1, 2, 301, 3),
+    (1, 300, 1, 3),
+    (1, 301, 2, 3),
+    (1, 3, 5, 3),
+    (1, 4, 4, 3),
+    (1, 5, 3, 1),
+    (64, 257, 3),
+    (300, 64, 3),
+    (1, 288, 288, 3),
+    (6, 288, 288, 3),
+    (6, 576, 576, 3),
+]
+
 MAIN_H, MAIN_W = 720, 1280
 MAIN_OUT = (12245, 6887)  # (width, height) of the 100MP preset at 16:9
 
@@ -110,6 +140,15 @@ def bound(nbytes: int, flops: int) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def pyr_down_work(shape_in, shape_out) -> tuple:
+    """Bytes (one read of the input, one write of the output) and FLOP of
+    K1: 9 FLOP per sample in each pass (5 multiplies, 4 adds), the
+    vertical pass on [.., ceil(H/2), W, C], the horizontal on the output."""
+    n_in, n_out = int(np.prod(shape_in)), int(np.prod(shape_out))
+    n_vert = n_out // shape_out[-2] * shape_in[-2]
+    return (n_in + n_out) * 4, 9 * (n_vert + n_out)
 
 
 def pyr_up_work(shape_in, shape_out) -> tuple:
@@ -187,7 +226,7 @@ def check_kernels(torch, K) -> dict:
     worst = {"pyr_down": 0.0, "pyr_up": 0.0}
     # Odd, even and tiny sizes, and channel counts other than 3.
     for shape in [(2, 63, 129, 3), (1, 5, 7, 3), (1, 1, 1, 3), (3, 2, 3, 1),
-                  (2, 8, 9, 5), (1, 33, 32, 3)]:
+                  (2, 8, 9, 5), (1, 33, 32, 3), *PYR_DOWN_EDGE_CASES]:
         x = rand(*shape)
         worst["pyr_down"] = max(worst["pyr_down"], err(K.pyr_down(x), K.pyr_down_plain(x)))
     for shape, dst in [((2, 33, 65, 3), (65, 129)), ((2, 33, 65, 3), (66, 130)),
@@ -218,11 +257,9 @@ def check_kernels(torch, K) -> dict:
             "library_ms": cuda_ms(lambda: conv(planes), 20),
             "library_call": "nn.Conv2d(5x5, stride 2, padding_mode='reflect') on [18,1,4608,4608]",
             "library_max_abs_err": lib_err,
-            "bytes": (x.numel() + x.numel() // 4) * 4,
-            # vertical pass: 9 FLOP per [H/2, W] sample; horizontal: 9 per output
-            "flops": 9 * (6 * 2304 * 4608 * 3 + 6 * 2304 * 2304 * 3),
             "shape": "[6,4608,4608,3] -> [6,2304,2304,3]",
         }
+        down["bytes"], down["flops"] = pyr_down_work(x.shape, (6, 2304, 2304, 3))
     del planes
     # K2 at the finest Laplacian level: [6,2304,2304,3] -> [6,4608,4608,3].
     xs = rand(6, 2304, 2304, 3)
@@ -255,30 +292,35 @@ def check_kernels(torch, K) -> dict:
     return out
 
 
-def time_pyr_up_shapes(torch, K, held: dict) -> list:
-    """K2 at every distinct (input, output) shape of the main path's
+def time_kernel_shapes(torch, K, held: dict) -> dict:
+    """K1 and K2 at every distinct (input, output) shape of the main path's
     warm-up run, on random data of that shape: its launches per call, the
     worst error held against the plain version there, mean milliseconds
     (CUDA events), bound and share of the bound."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    by_shape = {}
-    for shape_in, shape_out, e in held["pyr_up"]["shapes"]:
-        n, worst = by_shape.get((tuple(shape_in), tuple(shape_out)), (0, 0.0))
-        by_shape[(tuple(shape_in), tuple(shape_out))] = (n + 1, max(worst, e))
-    rows = []
-    for (shape_in, shape_out), (n, worst) in by_shape.items():
-        x = torch.rand(shape_in, generator=gen, device=dev) * 255.0
-        dst = shape_out[-3:-1]
-        nbytes, flops = pyr_up_work(shape_in, shape_out)
-        ms = cuda_ms(lambda: K.pyr_up(x, dst), max(10, min(200, int(4e9 // nbytes))))
-        bound_ms, bound_by = bound(nbytes, flops)
-        rows.append({"in": list(shape_in), "out": list(shape_out), "launches": n,
-                     "max_abs_err": worst, "ms": ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "pct_of_bound": 100.0 * bound_ms / ms})
-        del x
+    calls = {"pyr_down": (lambda x, dst: K.pyr_down(x), pyr_down_work),
+             "pyr_up": (lambda x, dst: K.pyr_up(x, dst), pyr_up_work)}
+    out = {}
+    for name, (call, work) in calls.items():
+        by_shape = {}
+        for shape_in, shape_out, e in held[name]["shapes"]:
+            n, worst = by_shape.get((tuple(shape_in), tuple(shape_out)), (0, 0.0))
+            by_shape[(tuple(shape_in), tuple(shape_out))] = (n + 1, max(worst, e))
+        rows = []
+        for (shape_in, shape_out), (n, worst) in by_shape.items():
+            x = torch.rand(shape_in, generator=gen, device=dev) * 255.0
+            dst = shape_out[-3:-1]
+            nbytes, flops = work(shape_in, shape_out)
+            ms = cuda_ms(lambda: call(x, dst), max(10, min(200, int(4e9 // nbytes))))
+            bound_ms, bound_by = bound(nbytes, flops)
+            rows.append({"in": list(shape_in), "out": list(shape_out), "launches": n,
+                         "max_abs_err": worst, "ms": ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "pct_of_bound": 100.0 * bound_ms / ms})
+            del x
+        out[name] = rows
     torch.cuda.empty_cache()
-    return rows
+    return out
 
 
 @contextlib.contextmanager
@@ -443,6 +485,7 @@ def profile_main_path(torch, pipe, image, tmp: str) -> dict:
     if not res.success:
         fail(f"profiled process() failed: {res.error_message}")
     spans, by_name, windows = [], {}, {}
+    launches = {"pyr_down": [], "pyr_up": []}  # (start, device ms) per launch
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -450,6 +493,9 @@ def profile_main_path(torch, pipe, image, tmp: str) -> dict:
             windows[e.name[6:]] = (e.time_range.start, e.time_range.end)
             continue
         spans.append((e.time_range.start, e.time_range.end))
+        for k, v in launches.items():
+            if f"{k}_kernel" in e.name:
+                v.append((e.time_range.start, e.time_range.elapsed_us() / 1e3))
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy = []  # union of kernel and copy intervals
@@ -465,11 +511,10 @@ def profile_main_path(torch, pipe, image, tmp: str) -> dict:
         for name, (w0, w1) in windows.items()
     }
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    # K1/K2 in all, whether or not they are among the largest.
-    pyramid = {}
-    for k in ("pyr_down", "pyr_up"):
-        hits = [v for n, v in by_name.items() if f"{k}_kernel" in n]
-        pyramid[k] = [sum(ms for ms, _ in hits), sum(c for _, c in hits)]
+    # K1/K2 in all, whether or not they are among the largest, and each
+    # launch's device time in launch order (K1: levels 0-4).
+    pyramid = {k: [sum(ms for _, ms in v), len(v)] for k, v in launches.items()}
+    per_launch = {k: [ms for _, ms in sorted(v)] for k, v in launches.items()}
 
     def self_dev_ms(e):
         us = getattr(e, "self_device_time_total", None)
@@ -493,6 +538,7 @@ def profile_main_path(torch, pipe, image, tmp: str) -> dict:
         "stage_device": stages,
         "top_device_ms": [[name[:140], round(ms, 3), n] for name, (ms, n) in top],
         "pyramid_kernels_ms": pyramid,
+        "pyramid_launch_ms": per_launch,
         "top_ops_self_device_ms": [[k, round(ms, 3), n] for k, ms, n in ops],
         "add_by_input_shapes": [[k[:200], round(ms, 3), n] for k, ms, n in adds],
     }
@@ -543,8 +589,8 @@ def main() -> int:
         emit("main_path", t0, **main)
 
         t0 = time.time()
-        up_shapes = time_pyr_up_shapes(torch, K, main["held_against_plain"])
-        emit("kernel_shapes", t0, pyr_up=up_shapes)
+        shapes = time_kernel_shapes(torch, K, main["held_against_plain"])
+        emit("kernel_shapes", t0, **shapes)
 
         if want_profile:
             t0 = time.time()
@@ -563,10 +609,9 @@ def main() -> int:
                                main["held_against_plain"][name]["max_abs_err"]),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+            "shapes": [{k: r[k] for k in ("in", "out", "launches", "ms", "bound_ms",
+                                          "pct_of_bound")} for r in shapes[name]],
         })
-    kernels[1]["shapes"] = [
-        {k: r[k] for k in ("in", "out", "launches", "ms", "bound_ms", "pct_of_bound")}
-        for r in up_shapes]
     emit("done", t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -24,9 +24,50 @@
 // written once, against ~10 FLOP per output element. At the main path's
 // level 0 each moves 1.91 GB, 0.57 ms at 3.35 TB/s.
 //
-// K1 stages a 16x32-output tile plus its halo in shared memory, applying
-// the border rule while it loads, runs the vertical pass into a second
-// shared buffer, then the horizontal pass, and writes its tile once.
+// K1 is a row-streaming stencil. Its input is 80% of its bytes (four
+// samples read for each one written), so its design is about keeping wide
+// loads in flight:
+// - Layout: an NHWC row is one run of W*C floats. A block owns a band of
+//   128 output columns (256 source, plus a two-pixel halo each side) and
+//   a run of output rows of one plane, and walks down its rows. Output row
+//   o reads source rows 2o-2 .. 2o+2; row o+1 needs two new ones. Level 0
+//   ([6,4608^2,3] -> [6,2304^2,3]) is 18 x 72 x 6 blocks of 32 rows (the
+//   old 16x32-output tiles made 62,208 blocks that each re-read 15% of
+//   their share as halo; now halo and the three-row overlap of runs
+//   re-read about 6%).
+// - A ring of eight staged source rows in shared memory, filled by
+//   cp.async (16-byte copies on aligned rows, as at every main-path
+//   launch: W*C is a multiple of 4). Five rows are in use; the two rows of
+//   the next output row and the two of the one after are in flight, so a
+//   block's loads overlap its own compute, not only other blocks'. By
+//   Little's law, 3.35 TB/s at ~1 us of latency needs ~3.4 MB in flight,
+//   ~25 KB per SM; a band row is 3.1 KB, so up to four rows in flight per
+//   block and four blocks per SM (80 registers a thread at C=3; 28 KB of
+//   shared memory a block) cover it. On an H100 (700 W) neither a 16-row
+//   ring with four output rows ahead nor 64-column bands at eight blocks
+//   per SM moved level 0 (0.77-0.81 ms against 0.77-0.78), so level 0 is
+//   not bound by latency. Each staged row gets REFLECT_101 on its row and
+//   its halo columns while it is staged, so compute never branches on
+//   position, and pixel 0 sits on a 16-byte boundary.
+// - Every output row commits one cp.async group, empty past the run's end,
+//   so one fixed wait_group count always means the same rows have landed.
+// - The vertical pass writes one row of the band and its halo into a
+//   one-row shared buffer (not a whole tile's), with even and odd source
+//   pixels apart; the horizontal pass then reads output float e's taps at
+//   e - C, e and e + C of the two halves, as aligned 16-byte windows at
+//   C=3, and decimates without a per-element index computation.
+// - Each thread writes 4 consecutive floats as one 16-byte streaming store
+//   (__stcs) wherever the output row is 16-byte aligned; a ragged right
+//   edge or an unaligned row takes scalar stores.
+// - C is a template parameter, instantiated for 3 (the main path);
+//   other channel counts run the same body with C read at run time. No
+//   loop divides by C or by a row length per element: a thread finds its
+//   first (pixel, channel) once and steps from there.
+// - Runs sized to the grid: srs_pyr_down_f32 halves the run from 32
+//   output rows until the grid holds at least two blocks per SM (2 x 132
+//   on the H100), or the run reaches 4 rows. Level 0 keeps 7,776 blocks
+//   of 32 rows; level 4 ([6,288^2,3]) gets 432 blocks of 4 rows where
+//   32-row runs would give 60, fewer than the card has SMs.
 //
 // K2 is a row-streaming stencil. Its output is 80% of its bytes (four
 // samples written for each one read), so its design is about keeping
@@ -66,9 +107,12 @@
 
 namespace {
 
-constexpr int kDownTH = 16;  // K1 output rows per block
-constexpr int kDownTW = 32;  // K1 output columns per block
-constexpr int kThreads = 256;  // K1
+constexpr int kDownBand = 128;   // K1 output columns per block (256 source)
+constexpr int kDownRunMax = 32;  // K1 output rows per block, longest run
+constexpr int kDownRunMin = 4;   // ...and shortest
+constexpr int kDownSlots = 8;    // K1 ring of staged source rows
+constexpr int kDownAhead = 2;    // K1 output rows staged ahead of the one in use
+constexpr int kDownThreads = 192;  // a float4 per thread and staged row at C=3
 constexpr int kUpBand = 128;   // K2 source columns per block (256 output)
 constexpr int kUpRun = 32;     // K2 source rows per block (64 output)
 constexpr int kUpThreads = 192;  // one float4 per thread and output row at C=3
@@ -89,70 +133,6 @@ __device__ __forceinline__ int up_source(int j, int m) {
   return j < m ? j : m - 1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-pyr_down_kernel(const float* __restrict__ x, float* __restrict__ y, int h,
-                int w, int c, int ho, int wo) {
-  extern __shared__ float smem[];
-  constexpr int in_rows = 2 * kDownTH + 3;
-  constexpr int in_cols = 2 * kDownTW + 3;
-  const int row_elems = in_cols * c;
-  float* s_in = smem;                       // [in_rows][in_cols][c]
-  float* s_v = smem + in_rows * row_elems;  // [kDownTH][in_cols][c]
-
-  const int b = blockIdx.z;
-  const int oi0 = blockIdx.y * kDownTH;
-  const int oj0 = blockIdx.x * kDownTW;
-  const int r0 = 2 * oi0 - 2;  // input row of s_in row 0
-  const int q0 = 2 * oj0 - 2;  // input column of s_in column 0
-  const float* xb = x + static_cast<size_t>(b) * h * w * c;
-
-  for (int idx = threadIdx.x; idx < in_rows * row_elems; idx += blockDim.x) {
-    const int rr = idx / row_elems;
-    const int rem = idx - rr * row_elems;
-    const int cc = rem / c;
-    const int ch = rem - cc * c;
-    const int gi = reflect101(r0 + rr, h);
-    const int gj = reflect101(q0 + cc, w);
-    s_in[idx] = xb[(static_cast<size_t>(gi) * w + gj) * c + ch];
-  }
-  __syncthreads();
-
-  const float g0 = 1.0f / 16.0f, g1 = 4.0f / 16.0f, g2 = 6.0f / 16.0f;
-  // Vertical: output row oi0+rr reads input rows 2(oi0+rr)-2 .. +2.
-  for (int idx = threadIdx.x; idx < kDownTH * row_elems; idx += blockDim.x) {
-    const int rr = idx / row_elems;
-    const int rem = idx - rr * row_elems;
-    const float* p = s_in + 2 * rr * row_elems + rem;
-    float acc = p[0] * g0;
-    acc = acc + p[row_elems] * g1;
-    acc = acc + p[2 * row_elems] * g2;
-    acc = acc + p[3 * row_elems] * g1;
-    acc = acc + p[4 * row_elems] * g0;
-    s_v[idx] = acc;
-  }
-  __syncthreads();
-
-  // Horizontal with decimation: output column oj0+jj reads columns
-  // 2(oj0+jj)-2 .. +2 of the vertical result.
-  const int out_elems = kDownTW * c;
-  for (int idx = threadIdx.x; idx < kDownTH * out_elems; idx += blockDim.x) {
-    const int rr = idx / out_elems;
-    const int rem = idx - rr * out_elems;
-    const int jj = rem / c;
-    const int ch = rem - jj * c;
-    const int oi = oi0 + rr;
-    const int oj = oj0 + jj;
-    if (oi >= ho || oj >= wo) continue;
-    const float* p = s_v + rr * row_elems + 2 * jj * c + ch;
-    float acc = p[0] * g0;
-    acc = acc + p[c] * g1;
-    acc = acc + p[2 * c] * g2;
-    acc = acc + p[3 * c] * g1;
-    acc = acc + p[4 * c] * g0;
-    y[((static_cast<size_t>(b) * ho + oi) * wo + oj) * c + ch] = acc;
-  }
-}
-
 // cp.async copies of 4 and 16 bytes into shared memory, and their groups.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -171,6 +151,196 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four floats from a 16-byte aligned shared address into registers.
+__device__ __forceinline__ void unpack4(float* dst, const float* src) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  dst[0] = v.x;
+  dst[1] = v.y;
+  dst[2] = v.z;
+  dst[3] = v.w;
+}
+
+// Floats before pixel 0 of a staged K1 row: pixels -2 and -1 sit just
+// before it, and pixel 0 is 16-byte aligned.
+__host__ __device__ constexpr int down_lead(int c) { return (2 * c + 3) & ~3; }
+
+// Floats of one staged K1 row: pixels -2 .. 2 kDownBand, rounded up to
+// 16 bytes.
+__host__ __device__ constexpr int down_row_floats(int c) {
+  return (down_lead(c) + (2 * kDownBand + 1) * c + 3) & ~3;
+}
+
+// Floats before pixel 0 of each half of K1's vertical result (one row,
+// even and odd source pixels apart), and of one half: pixels -1 ..
+// kDownBand and a float4 of slack for the horizontal pass's window.
+__host__ __device__ constexpr int down_half_lead(int c) { return (c + 3) & ~3; }
+__host__ __device__ constexpr int down_half_floats(int c) {
+  return down_half_lead(c) + (((kDownBand + 1) * c + 3) & ~3) + 4;
+}
+
+// K1. Block (band, run, b) owns output columns [oj0, oj0 + kDownBand) and
+// output rows [o0, o0 + run) of plane b, and walks down its rows. Output
+// row o reads source rows 2o-2 .. 2o+2, of which 2o+1 and 2o+2 are new.
+// CT is the channel count when it is known at compile time (3, the main
+// path's), or 0 to read it from c_rt.
+template <int CT>
+__global__ void __launch_bounds__(kDownThreads)
+pyr_down_kernel(const float* __restrict__ x, float* __restrict__ y, int h,
+                int w, int ho, int wo, int run, int c_rt, bool vec_in,
+                bool vec_out) {
+  static_assert(CT <= 4, "the compile-time horizontal window covers C <= 4");
+  static_assert(2 * kDownAhead + 3 <= kDownSlots, "the ring is too small");
+  const int c = CT > 0 ? CT : c_rt;
+  const int t = threadIdx.x;
+  const int row_floats = down_row_floats(c);
+  const int lead = down_lead(c);
+  extern __shared__ __align__(16) float down_smem[];
+  float* ring = down_smem;  // kDownSlots staged source rows
+  // Vertical result of one row: even source pixels 2p in ev[p c + ch],
+  // odd ones 2p+1 in od[p c + ch], p from -1.
+  float* ev = down_smem + kDownSlots * row_floats + down_half_lead(c);
+  float* od = ev + down_half_floats(c);
+
+  const int b = blockIdx.z;
+  const int oj0 = blockIdx.x * kDownBand;
+  const int o0 = blockIdx.y * run;
+  const int n_rows = min(run, ho - o0);
+  const int nq = min(kDownBand, wo - oj0);  // output pixels of the band
+  const int span = 2 * nq + 1;              // source pixels 0 .. 2 nq
+  const int j0 = 2 * oj0;                   // source column of pixel 0
+  const int mid = min(span, w - j0);        // pixels of the span inside the row
+  const int r0 = 2 * o0 - 2;                // source row of staged row 0
+  const float* xb = x + static_cast<size_t>(b) * h * w * c;
+
+  // Stage source row r0 + s (REFLECT_101 applied here) into slot s: pixels
+  // -2 .. span - 1 of the band, as cp.async copies.
+  auto stage = [&](int s) {
+    const float* src = xb + static_cast<size_t>(reflect101(r0 + s, h)) * w * c;
+    float* dst = ring + (s & (kDownSlots - 1)) * row_floats + lead;
+    const float* body = src + static_cast<size_t>(j0) * c;
+    const int body_floats = mid * c;
+    int k = t;
+    if (vec_in) {
+      for (; 4 * k + 3 < body_floats; k += kDownThreads)
+        cp_async16(dst + 4 * k, body + 4 * k);
+      k = (body_floats & ~3) + t;
+    }
+    for (; k < body_floats; k += kDownThreads) cp_async4(dst + k, body + k);
+    // Pixels -2, -1 and mid .. span - 1, from their border-rule columns.
+    for (int p = t; p < span + 2 - mid; p += kDownThreads) {
+      const int q = p < 2 ? p - 2 : mid + p - 2;
+      const float* from = src + reflect101(j0 + q, w) * c;
+      for (int ch = 0; ch < c; ++ch) cp_async4(dst + q * c + ch, from + ch);
+    }
+  };
+  // The rows output row i of the run needs that no earlier row brought.
+  auto stage_for = [&](int i) {
+    if (i >= n_rows) return;
+    if (i == 0) {
+      stage(0);
+      stage(1);
+      stage(2);
+    }
+    stage(2 * i + 3);
+    stage(2 * i + 4);
+  };
+
+  // One cp.async group per output row, empty past the run's end, so that
+  // waiting until kDownAhead - 1 groups are pending means row i's landed.
+  for (int i = 0; i < kDownAhead; ++i) {
+    stage_for(i);
+    cp_async_commit();
+  }
+
+  // Vertical pass: this thread's staged floats are f = t + k kDownThreads
+  // from pixel -2, channel 0; (vp, vch) is the pixel and channel of the
+  // first, stepped without division.
+  const int v_floats = (span + 2) * c;
+  const int vp_step = kDownThreads / c, vch_step = kDownThreads - vp_step * c;
+  const int vp_first = t / c - 2, vch_first = t - (t / c) * c;
+  // Horizontal pass: 4 consecutive output floats of the band's row at a
+  // time, from float 4t, stepping by 4 kDownThreads.
+  const int seg_floats = nq * c;
+  const float g0 = 1.0f / 16.0f, g1 = 4.0f / 16.0f, g2 = 6.0f / 16.0f;
+
+  for (int i = 0; i < n_rows; ++i) {
+    cp_async_wait<kDownAhead - 1>();  // rows up to 2i + 4 have landed
+    __syncthreads();                   // ...for every thread; ev/od are free
+    {
+      auto row = [&](int s) {  // staged row s from its pixel -2
+        return ring + (s & (kDownSlots - 1)) * row_floats + lead - 2 * c;
+      };
+      const float *s0 = row(2 * i), *s1 = row(2 * i + 1), *s2 = row(2 * i + 2),
+                  *s3 = row(2 * i + 3), *s4 = row(2 * i + 4);
+      int p = vp_first, ch = vch_first;
+      for (int f = t; f < v_floats; f += kDownThreads) {
+        float acc = s0[f] * g0;
+        acc = acc + s1[f] * g1;
+        acc = acc + s2[f] * g2;
+        acc = acc + s3[f] * g1;
+        acc = acc + s4[f] * g0;
+        ((p & 1) ? od : ev)[(p >> 1) * c + ch] = acc;
+        p += vp_step;
+        ch += vch_step;
+        if (ch >= c) {
+          ch -= c;
+          ++p;
+        }
+      }
+    }
+    __syncthreads();  // ev/od are complete; rows 2i and 2i - 1 are free
+    stage_for(i + kDownAhead);
+    cp_async_commit();
+
+    // Horizontal pass: output float e = q c + ch reads source pixels
+    // 2q-2 .. 2q+2 of channel ch, i.e. ev[e - c], od[e - c], ev[e],
+    // od[e], ev[e + c], taps in order.
+    float* out = y + (static_cast<size_t>(b) * ho + o0 + i) * wo * c +
+                 static_cast<size_t>(oj0) * c;
+    for (int e = 4 * t; e < seg_floats; e += 4 * kDownThreads) {
+      float val[4];
+      if constexpr (CT > 0) {
+        // Aligned float4 windows ev[e-4, e+8) and od[e-4, e+4).
+        float we[12], wd[8];
+        unpack4(we, ev + e - 4);
+        unpack4(we + 4, ev + e);
+        unpack4(we + 8, ev + e + 4);
+        unpack4(wd, od + e - 4);
+        unpack4(wd + 4, od + e);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float acc = we[4 + k - CT] * g0;
+          acc = acc + wd[4 + k - CT] * g1;
+          acc = acc + we[4 + k] * g2;
+          acc = acc + wd[4 + k] * g1;
+          acc = acc + we[4 + k + CT] * g0;
+          val[k] = acc;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int ek = e + k;
+          float acc = ev[ek - c] * g0;
+          acc = acc + od[ek - c] * g1;
+          acc = acc + ev[ek] * g2;
+          acc = acc + od[ek] * g1;
+          acc = acc + ev[ek + c] * g0;
+          val[k] = acc;
+        }
+      }
+      if (vec_out && e + 3 < seg_floats) {
+        __stcs(reinterpret_cast<float4*>(out + e),
+               make_float4(val[0], val[1], val[2], val[3]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (e + k < seg_floats) __stcs(out + e + k, val[k]);
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
 // Floats from the start of a staged row to its pixel 0: the left halo
@@ -321,17 +491,32 @@ int srs_pyr_down_f32(const void* x, void* y, int64_t n, int64_t h, int64_t w,
                      int64_t c, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || c > kMaxChannels || n > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int ci = static_cast<int>(c);
   const int ho = static_cast<int>((h + 1) / 2);
   const int wo = static_cast<int>((w + 1) / 2);
-  const size_t smem = static_cast<size_t>((2 * kDownTH + 3) + kDownTH) *
-                      (2 * kDownTW + 3) * c * sizeof(float);
-  cudaError_t err = allow_smem(pyr_down_kernel, smem);
+  // 16-byte copies and stores where every row starts 16-byte aligned.
+  const bool vec_in = (w * c) % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_out = (wo * c) % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  // The run: halve it from kDownRunMax until the grid holds two blocks for
+  // each SM, or it reaches kDownRunMin.
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((wo + kDownTW - 1) / kDownTW, (ho + kDownTH - 1) / kDownTH,
+  const int64_t bands = (wo + kDownBand - 1) / kDownBand;
+  int run = kDownRunMax;
+  while (run > kDownRunMin && bands * ((ho + run - 1) / run) * n < 2 * sms) run /= 2;
+  const size_t smem = (kDownSlots * static_cast<size_t>(down_row_floats(ci)) +
+                       2 * static_cast<size_t>(down_half_floats(ci))) * sizeof(float);
+  const dim3 grid(static_cast<unsigned>(bands), static_cast<unsigned>((ho + run - 1) / run),
                   static_cast<unsigned>(n));
-  pyr_down_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(y),
-      static_cast<int>(h), static_cast<int>(w), static_cast<int>(c), ho, wo);
+  const auto kernel = ci == 3 ? &pyr_down_kernel<3> : &pyr_down_kernel<0>;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kDownThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), static_cast<int>(h),
+      static_cast<int>(w), ho, wo, run, ci, vec_in, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,7 +25,15 @@ from srs_tpu_torch.ops.cuda import pyramid as K
 ATOL = 1e-4
 
 DOWN_SHAPES = [(2, 63, 129, 3), (1, 64, 128, 3), (1, 5, 7, 3), (1, 2, 3, 1), (3, 1, 1, 2),
-               (1, 7, 4, 3)]
+               (1, 7, 4, 3),
+               # chip_smoke.py's K1 edge cases (PYR_DOWN_EDGE_CASES): the card holds
+               # K1 to the plain version there, and these hold the plain version
+               # to the XLA path at the same shapes.
+               (1, 64, 256, 3), (1, 63, 255, 3), (1, 65, 257, 3), (6, 128, 512, 3),
+               (2, 129, 513, 1), (1, 40, 260, 3), (1, 40, 255, 1), (2, 37, 130, 5),
+               (1, 1, 300, 3), (1, 2, 301, 3), (1, 300, 1, 3), (1, 301, 2, 3),
+               (1, 3, 5, 3), (1, 4, 4, 3), (1, 5, 3, 1), (64, 257, 3), (300, 64, 3),
+               (1, 288, 288, 3), (6, 288, 288, 3), (6, 576, 576, 3)]
 UP_CASES = [((2, 33, 65, 3), (65, 129)), ((2, 33, 65, 3), (66, 130)),
             ((1, 32, 16, 3), (64, 32)), ((1, 1, 1, 3), (1, 1)), ((1, 1, 1, 3), (2, 2)),
             ((1, 3, 5, 1), (5, 9)), ((1, 4, 6, 2), (6, 10)), ((1, 17, 16, 3), (34, 31))]
