@@ -14,24 +14,34 @@ in order, each printing one JSON line with its seconds:
    versions on the card, at the main path's shapes, at odd and tiny
    sizes, and at the edges of their row-streaming blocks, with their
    times beside the bound and a PyTorch library call;
-4. reference: the whole pipeline on a small input, on the card and on the
-   CPU (plain versions), whose TIFFs must agree within 1 LSB;
+4. reference: the whole pipeline on small inputs, on the card and on the
+   CPU (plain versions): with routing, selection and QA off, TIFFs within
+   1 LSB; with them on (the bench flags), the same routing decision and
+   ladder models, the probe's gain and alpha within their bfloat16
+   tolerances, TIFFs within 1 LSB and QA values within the CPU tests'
+   tolerances;
 5. main path: ``SuperResolutionPipeline.process()`` for a 720x1280 input
    to the 100MP preset (12245x6887) with provider ``quality`` and
    ``edsr_xl`` at its full width (16 blocks, 128 features) on a [3, 3]
-   ladder, weights seeded and the tail non-zero; run once to warm up, with
-   every K1/K2 launch also held against the plain version on the same
-   input (the main path's own shapes and data: tile levels, canvas
-   collapse steps and finalize bands), and once with the launch counts
-   reset, which must show both kernels;
-6. kernel_shapes: K1 and K2 timed at every distinct (input, output)
-   shape that the warm-up run launched, each with its launches, bound and
-   share of the bound.
+   ladder, routing, per-scale selection and QA off, weights seeded and the
+   tail non-zero; run once to warm up, with every K1/K2 launch also held
+   against the plain version on the same input (the main path's own
+   shapes and data: tile levels, canvas collapse steps and finalize
+   bands), and once with the launch counts reset, which must show both
+   kernels;
+6. bench path: the same input through ``bench.py:69-83``'s configuration
+   (routing with the SR-gain probe, per-scale selection from a ledger the
+   smoke writes, QA with the full-resolution panel and the report file),
+   warmed up with every launch held against the plain version, then run
+   with the launch counts reset;
+7. kernel_shapes: K1 and K2 timed at every distinct (input, output)
+   shape that the two warm-up runs launched, each with its launches per
+   path, bound and share of the bound.
 
-With ``--profile`` it then runs the main path once more under
+With ``--profile`` it then runs both paths once more under
 ``torch.profiler`` and prints the device's busy share, per stage and in
-all, its time by kernel (K1 and K2 always, in all and per launch) and by
-op, and the in-place adds by input shape.
+all, its time by kernel (K1 and K2 always, in all and per launch with its
+shape) and by op, and the in-place adds by input shape.
 Then it prints a ``done`` line with the total seconds, the kernels' JSON
 line (each kernel's entry with its ``shapes`` of phase 6), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -116,6 +126,45 @@ PYR_DOWN_EDGE_CASES = [
 
 MAIN_H, MAIN_W = 720, 1280
 MAIN_OUT = (12245, 6887)  # (width, height) of the 100MP preset at 16:9
+
+# The bench path's ledger: photo_panel.mean_delta at x3 of the quality
+# candidates, copied from srs_tpu/models/checkpoints/EVAL.json (that
+# directory is not copied to the card). Only edsr_xl has weights here, so
+# selection serves it, as it does on the packaged ledger.
+BENCH_LEDGER = {
+    "edsr_xl_x3": {"photo_panel": {"mean_delta": 0.971}},
+    "edsr_l_x3": {"photo_panel": {"mean_delta": 0.955}},
+    "espcn_x3": {"photo_panel": {"mean_delta": 0.604}},
+    "edsr_m_x3": {"photo_panel": {"mean_delta": 0.535}},
+    "rcan_x3": {"photo_panel": {"mean_delta": 0.424}},
+}
+# Report keys the bench path must produce, each finite.
+REPORT_KEYS = ("psnr", "ssim", "ms_ssim", "lpips_vgg", "lpips_alex", "niqe", "brisque",
+               "fullres_niqe", "fullres_brisque", "fullres_sharpness", "fullres_contrast",
+               "overall_score")
+# Card against CPU, with the tolerances of the CPU tests
+# (tests/test_torch_routing.py, tests/test_torch_pipeline.py): the probe's
+# bfloat16 gain and alpha, and each report value per key.
+GAIN_ATOL_DB, ALPHA_ATOL = 0.1, 0.01
+# A served alpha 0.001 apart is another output: the report is then held
+# to relative 2e-2 in every key, as the CPU test of the shrink route does.
+ALPHA_APART_RTOL = 2e-2
+
+
+def report_tolerance(key: str) -> tuple:
+    """(absolute, relative) tolerance of one report value, card against
+    CPU; a value passes within either. NIQE and BRISQUE pick shape
+    parameters from a moment-ratio table by argmin, where a near tie takes
+    the neighbouring entry."""
+    if key.startswith("psnr"):
+        return 1e-3, 0.0
+    if key.startswith(("ssim", "ms_ssim")):
+        return 1e-5, 0.0
+    if key in ("niqe", "brisque", "fullres_niqe", "fullres_brisque"):
+        return 0.0, 2e-2
+    if key.startswith("fullres_"):
+        return 0.0, 1e-2
+    return 1e-6, 1e-4
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -292,11 +341,11 @@ def check_kernels(torch, K) -> dict:
     return out
 
 
-def time_kernel_shapes(torch, K, held: dict) -> dict:
-    """K1 and K2 at every distinct (input, output) shape of the main path's
-    warm-up run, on random data of that shape: its launches per call, the
-    worst error held against the plain version there, mean milliseconds
-    (CUDA events), bound and share of the bound."""
+def time_kernel_shapes(torch, K, held_by_path: dict) -> dict:
+    """K1 and K2 at every distinct (input, output) shape of the warm-up
+    runs, on random data of that shape: its launches per call on each
+    path, the worst error held against the plain version there, mean
+    milliseconds (CUDA events), bound and share of the bound."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     calls = {"pyr_down": (lambda x, dst: K.pyr_down(x), pyr_down_work),
@@ -304,17 +353,20 @@ def time_kernel_shapes(torch, K, held: dict) -> dict:
     out = {}
     for name, (call, work) in calls.items():
         by_shape = {}
-        for shape_in, shape_out, e in held[name]["shapes"]:
-            n, worst = by_shape.get((tuple(shape_in), tuple(shape_out)), (0, 0.0))
-            by_shape[(tuple(shape_in), tuple(shape_out))] = (n + 1, max(worst, e))
+        for path, held in held_by_path.items():
+            for shape_in, shape_out, e in held[name]["shapes"]:
+                key = (tuple(shape_in), tuple(shape_out))
+                counts, worst = by_shape.get(key, ({}, 0.0))
+                counts[path] = counts.get(path, 0) + 1
+                by_shape[key] = (counts, max(worst, e))
         rows = []
-        for (shape_in, shape_out), (n, worst) in by_shape.items():
+        for (shape_in, shape_out), (counts, worst) in by_shape.items():
             x = torch.rand(shape_in, generator=gen, device=dev) * 255.0
             dst = shape_out[-3:-1]
             nbytes, flops = work(shape_in, shape_out)
             ms = cuda_ms(lambda: call(x, dst), max(10, min(200, int(4e9 // nbytes))))
             bound_ms, bound_by = bound(nbytes, flops)
-            rows.append({"in": list(shape_in), "out": list(shape_out), "launches": n,
+            rows.append({"in": list(shape_in), "out": list(shape_out), "launches": counts,
                          "max_abs_err": worst, "ms": ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "pct_of_bound": 100.0 * bound_ms / ms})
             del x
@@ -324,27 +376,21 @@ def time_kernel_shapes(torch, K, held: dict) -> dict:
 
 
 @contextlib.contextmanager
-def held_against_plain(K):
+def pyramid_calls(K, on_call):
     """While open, every pyrDown/pyrUp call the pipeline makes through
-    ``ops/pyramid.py`` and ``ops/blend.py`` also runs the plain version on
-    the same input. Yields the records, (name, input shape, output shape,
-    max abs err) per call; the comparison itself launches nothing the
-    counts see beyond the pipeline's own call."""
+    ``ops/pyramid.py`` and ``ops/blend.py`` launches the kernel as usual and
+    then calls ``on_call(name, input, output, dst_hw)``."""
     import srs_tpu_torch.ops.blend as blend
     import srs_tpu_torch.ops.pyramid as pyramid
 
-    records = []
-
     def down(x):
         out = K.pyr_down(x)
-        records.append(("pyr_down", list(x.shape), list(out.shape),
-                        float((out - K.pyr_down_plain(x)).abs().max())))
+        on_call("pyr_down", x, out, None)
         return out
 
     def up(x, dst_hw=None):
         out = K.pyr_up(x, dst_hw)
-        records.append(("pyr_up", list(x.shape), list(out.shape),
-                        float((out - K.pyr_up_plain(x, dst_hw)).abs().max())))
+        on_call("pyr_up", x, out, dst_hw)
         return out
 
     sites = [(pyramid, "pyr_down", down), (pyramid, "pyr_up", up), (blend, "pyr_up", up)]
@@ -352,43 +398,133 @@ def held_against_plain(K):
     for mod, attr, fn in sites:
         setattr(mod, attr, fn)
     try:
-        yield records
+        yield
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
 
 
+@contextlib.contextmanager
+def recorded_shapes(K, shapes: dict):
+    """Appends the (input, output) shape of every pyrDown/pyrUp call to
+    ``shapes[name]``, in launch order."""
+    with pyramid_calls(K, lambda name, x, out, _dst: shapes[name].append(
+            [list(x.shape), list(out.shape)])):
+        yield shapes
+
+
+@contextlib.contextmanager
+def held_against_plain(K):
+    """While open, every pyrDown/pyrUp call also runs the plain version on
+    the same input. Yields the records, (name, input shape, output shape,
+    max abs err) per call; the comparison itself launches nothing the
+    counts see beyond the pipeline's own call."""
+    records = []
+    plain = {"pyr_down": lambda x, _dst: K.pyr_down_plain(x), "pyr_up": K.pyr_up_plain}
+
+    def hold(name, x, out, dst_hw):
+        records.append((name, list(x.shape), list(out.shape),
+                        float((out - plain[name](x, dst_hw)).abs().max())))
+
+    with pyramid_calls(K, hold):
+        yield records
+
+
 def reference_check(torch, tmp: str) -> dict:
-    """The pipeline on a small input, on the card and on the CPU with the
-    plain versions and float32 convolutions (TF32 off): same TIFF within
-    1 LSB."""
+    """The pipeline on small inputs, on the card and on the CPU with the
+    plain versions and float32 convolutions (TF32 off). Routing, selection
+    and QA off: same TIFF within 1 LSB. On (the bench flags, 96x112 ->
+    1008x864, so the probe runs): the same routing decision and ladder
+    models, gain and alpha within their bfloat16 tolerances, TIFF within
+    1 LSB, and the same report keys with each value within
+    ``report_tolerance``."""
     from srs_tpu_torch.io.native import read_tiff
     from srs_tpu_torch.models.registry import seeded_params
     from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
 
     torch.backends.cudnn.allow_tf32 = False
-    image = synthetic_image(80, 96, seed=3)
-    weights = {("edsr_m", 3): seeded_params("edsr_m", 3, seed=5)}
-    outs = {}
-    for device in ("cuda", "cpu"):
-        cfg = PipelineConfig(block_size=64, target_resolution="864x720",
-                             quality_model="edsr_m", compute_dtype="float32",
-                             device=device)
-        path = os.path.join(tmp, f"ref_{device}.tiff")
-        res = SuperResolutionPipeline(cfg, weights).process(image, path)
-        if not res.success:
-            fail(f"reference run on {device} failed: {res.error_message}")
-        outs[device] = read_tiff(path).astype(np.int16)
+    runs = {
+        "quality": (synthetic_image(80, 96, seed=3), "864x720", (720, 864, 3),
+                    dict(auto_route=False, per_scale_selection=False, enable_qa=False)),
+        "bench": (synthetic_image(96, 112, seed=4), "1008x864", (864, 1008, 3), {}),
+    }
+    weights = {("edsr_m", s): seeded_params("edsr_m", s, seed=5 + s) for s in (2, 3, 4)}
+    out = {}
+    for name, (image, target, shape, flags) in runs.items():
+        got = {}
+        for device in ("cuda", "cpu"):
+            cfg = PipelineConfig(block_size=64, target_resolution=target,
+                                 quality_model="edsr_m", compute_dtype="float32",
+                                 device=device, **flags)
+            path = os.path.join(tmp, f"ref_{name}_{device}.tiff")
+            pipe = SuperResolutionPipeline(cfg, weights)
+            res = pipe.process(image, path)
+            if not res.success:
+                fail(f"reference run {name} on {device} failed: {res.error_message}")
+            got[device] = (read_tiff(path).astype(np.int16), pipe.last_run_info,
+                           res.quality_report)
+        diff = np.abs(got["cuda"][0] - got["cpu"][0])
+        if got["cuda"][0].shape != shape or diff.max() > 1:
+            fail(f"card and CPU disagree on the small input ({name}): shape "
+                 f"{got['cuda'][0].shape}, max diff {diff.max()} LSB")
+        out[name] = {"shape": list(shape), "max_lsb": int(diff.max()),
+                     "frac_differing": float((diff > 0).mean())}
+        if name == "bench":
+            out[name].update(compare_bench_runs(*got["cuda"][1:], *got["cpu"][1:]))
     torch.backends.cudnn.allow_tf32 = True
-    diff = np.abs(outs["cuda"] - outs["cpu"])
-    if outs["cuda"].shape != (720, 864, 3) or diff.max() > 1:
-        fail(f"card and CPU disagree on the small input: shape {outs['cuda'].shape}, "
-             f"max diff {diff.max()} LSB")
-    return {"shape": list(outs["cuda"].shape), "max_lsb": int(diff.max()),
-            "frac_differing": float((diff > 0).mean())}
+    return out
 
 
-def main_path(torch, K, tmp: str):
+def compare_bench_runs(info, report, cpu_info, cpu_report) -> dict:
+    """Card against CPU on the bench flags: routing, ladder models, QA."""
+    r, rc = info["routing"], cpu_info["routing"]
+    if r["errors"] or rc["errors"]:
+        fail(f"routing swallowed an exception: card {r['errors']}, CPU {rc['errors']}")
+    for key in ("ladder", "provider", "model", "models"):
+        if info[key] != cpu_info[key]:
+            fail(f"card and CPU route differently: {key} {info[key]} vs {cpu_info[key]}")
+    if r["degradation"]["reason"] != rc["degradation"]["reason"]:
+        fail(f"degradation {r['degradation']} vs {rc['degradation']}")
+    if r["sr_gain"] is None or abs(r["sr_gain"] - rc["sr_gain"]) > GAIN_ATOL_DB \
+            or abs(r["alpha"] - rc["alpha"]) > ALPHA_ATOL:
+        fail(f"probe: card gain {r['sr_gain']} alpha {r['alpha']}, "
+             f"CPU gain {rc['sr_gain']} alpha {rc['alpha']}")
+    if set(report) != set(cpu_report):
+        fail(f"report keys differ: {sorted(set(report) ^ set(cpu_report))}")
+    same_alpha = info["sr_gain_alpha"] == cpu_info["sr_gain_alpha"]
+    diffs, bad = {}, []
+    for k, v in cpu_report.items():
+        g = report[k]
+        if isinstance(v, str) or k == "fullres_crops":
+            if g != v:
+                bad.append(f"{k}: card {g!r}, CPU {v!r}")
+        elif np.isnan(v) or np.isnan(g):
+            if not (np.isnan(v) and np.isnan(g)):
+                bad.append(f"{k}: card {g}, CPU {v}")
+        else:
+            atol, rtol = report_tolerance(k) if same_alpha else (1e-6, ALPHA_APART_RTOL)
+            d = abs(g - v)
+            diffs[k] = [d, d / max(abs(v), 1e-12)]
+            if d > atol and d > rtol * abs(v):
+                bad.append(f"{k}: card {g}, CPU {v} (abs {d:.3g} > {atol}, "
+                           f"relative {diffs[k][1]:.3g} > {rtol})")
+    if bad:
+        fail(f"card and CPU reports disagree (served alpha card "
+             f"{info['sr_gain_alpha']}, CPU {cpu_info['sr_gain_alpha']}): {bad}; "
+             f"[abs, relative] differences: {diffs}")
+    return {"routing": {"provider": info["provider"], "models": info["models"],
+                        "degradation": r["degradation"]["reason"],
+                        "sr_gain": [r["sr_gain"], rc["sr_gain"]],
+                        "alpha": [r["alpha"], rc["alpha"]],
+                        "served_alpha": [info["sr_gain_alpha"], cpu_info["sr_gain_alpha"]]},
+            "report_diffs": diffs}
+
+
+def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, **flags):
+    """One path of ``process()`` on the 720x1280 input to the 100MP preset:
+    a warm-up run with every K1/K2 launch held against its plain version,
+    then a run with the launch counts set to 0 just before it and read just
+    after. Returns (numbers, pipeline, result, path of the output)."""
     from srs_tpu_torch.io.native import read_tiff
     from srs_tpu_torch.models.registry import seeded_params
     from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
@@ -396,37 +532,37 @@ def main_path(torch, K, tmp: str):
     cfg = PipelineConfig(
         block_size=512, overlap_ratio=0.2, target_resolution="100MP",
         provider="quality", quality_model="edsr_xl", ibp_steps=4, bit_depth=8,
-        device="cuda",
+        device="cuda", **flags,
     )
     # Seeded weights at edsr_xl's full width for every scale the reference
     # ships trained (x2, x3, x4), so the ladder choice matches it.
     weights = {("edsr_xl", s): seeded_params("edsr_xl", s, seed=10 + s) for s in (2, 3, 4)}
     pipe = SuperResolutionPipeline(cfg, weights)
-    image = synthetic_image(MAIN_H, MAIN_W, seed=7)
-    path = os.path.join(tmp, "out_100mp.tiff")
+    path = os.path.join(tmp, f"out_{name}.tiff")
 
     K.reset_launches()
     with held_against_plain(K) as records:
         warm = pipe.process(image, path)
     if not warm.success:
-        fail(f"warm-up process() failed: {warm.error_message}")
+        fail(f"{name}: warm-up process() failed: {warm.error_message}")
     os.remove(path)
     # Every launch of the warm-up run was held against its plain version.
     held = {}
-    for name, shape_in, shape_out, e in records:
-        h = held.setdefault(name, {"calls": 0, "max_abs_err": 0.0, "shapes": []})
+    for kname, shape_in, shape_out, e in records:
+        h = held.setdefault(kname, {"calls": 0, "max_abs_err": 0.0, "shapes": []})
         h["calls"] += 1
         h["max_abs_err"] = max(h["max_abs_err"], e)
         h["shapes"].append([shape_in, shape_out, e])
-    for name, n in K.LAUNCHES.items():
-        h = held.get(name, {"calls": 0, "max_abs_err": 0.0})
+    for kname, n in K.LAUNCHES.items():
+        h = held.get(kname, {"calls": 0, "max_abs_err": 0.0})
         if n == 0 or h["calls"] != n:
-            fail(f"{name}: {n} launches in the warm-up run, {h['calls']} held "
+            fail(f"{name}: {kname}: {n} launches in the warm-up run, {h['calls']} held "
                  "against the plain version")
         if h["max_abs_err"] > KERNEL_ATOL:
-            fail(f"{name} disagrees with its plain version on the main path: "
+            fail(f"{name}: {kname} disagrees with its plain version: "
                  f"max abs err {h['max_abs_err']} > {KERNEL_ATOL}")
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     t0 = time.time()
@@ -434,23 +570,22 @@ def main_path(torch, K, tmp: str):
     elapsed = time.time() - t0
     launches = dict(K.LAUNCHES)
     if not res.success:
-        fail(f"process() failed: {res.error_message}")
-    for name, n in launches.items():
+        fail(f"{name}: process() failed: {res.error_message}")
+    for kname, n in launches.items():
         if n <= 0:
-            fail(f"the main path never launched kernel {name}")
+            fail(f"{name} never launched kernel {kname}")
     if pipe.last_run_info["ladder"] != [3, 3]:
-        fail(f"ladder {pipe.last_run_info['ladder']} != [3, 3]")
+        fail(f"{name}: ladder {pipe.last_run_info['ladder']} != [3, 3]")
     size = os.path.getsize(path)
     out = read_tiff(path)
     w, h = MAIN_OUT
     if out.shape != (h, w, 3) or out.dtype != np.uint8:
-        fail(f"output {out.shape} {out.dtype} != ({h}, {w}, 3) uint8")
-    # Content check: the output's per-channel means follow the input's, and
-    # the net changed pixels away from plain bicubic (a non-zero tail).
+        fail(f"{name}: output {out.shape} {out.dtype} != ({h}, {w}, 3) uint8")
+    # Content check: the output's per-channel means follow the input's.
     mean_in, mean_out = image.mean(axis=(0, 1)), out.mean(axis=(0, 1), dtype=np.float64)
     if np.abs(mean_in - mean_out).max() > 10.0 or out.std() < 10:
-        fail(f"output statistics off: input means {mean_in}, output means {mean_out}, "
-             f"std {out.std()}")
+        fail(f"{name}: output statistics off: input means {mean_in}, output means "
+             f"{mean_out}, std {out.std()}")
     return {
         "stage_times": res.stage_times,
         "warmup_stage_times": warm.stage_times,
@@ -466,19 +601,76 @@ def main_path(torch, K, tmp: str):
         "input_means": [float(v) for v in mean_in],
         "output_means": [float(v) for v in mean_out],
         "save_breakdown": pipe.last_run_info["save_breakdown"],
-    }, pipe, image
+    }, pipe, res, path
 
 
-def profile_main_path(torch, pipe, image, tmp: str) -> dict:
-    """One more main-path run under torch.profiler: the device's busy share
+def main_path(torch, K, tmp: str, image: np.ndarray):
+    """The quality path: routing, per-scale selection and QA off."""
+    nums, pipe, _res, _path = drive_path(
+        torch, K, tmp, "main_path", image,
+        auto_route=False, per_scale_selection=False, enable_qa=False)
+    return nums, pipe
+
+
+def bench_path(torch, K, tmp: str, image: np.ndarray):
+    """``bench.py:69-83``'s configuration: routing and the SR-gain probe,
+    per-scale selection from a ledger written here, QA and its report."""
+    ledger = os.path.join(tmp, "ledger")
+    os.makedirs(ledger, exist_ok=True)
+    with open(os.path.join(ledger, "EVAL.json"), "w") as f:
+        json.dump(BENCH_LEDGER, f)
+    nums, pipe, res, path = drive_path(torch, K, tmp, "bench_path", image,
+                                       checkpoint_dir=ledger)
+    cfg, info = pipe.config, pipe.last_run_info
+    if not (cfg.auto_route and cfg.per_scale_selection and cfg.enable_qa):
+        fail("bench path: routing, selection and QA must be on")
+    routing = info.get("routing")
+    if not routing or routing["errors"] or routing["degradation"] is None \
+            or routing["sr_gain"] is None:
+        fail(f"bench path: routing or the probe did not run cleanly: {routing}")
+    if info["models"] != ["edsr_xl", "edsr_xl"]:
+        fail(f"bench path: ladder models {info['models']}")
+    report = res.quality_report or {}
+    bad = [k for k in REPORT_KEYS if not np.isfinite(report.get(k, float("nan")))]
+    if bad or report.get("fullres_crops", 0) <= 0:
+        fail(f"bench path: report values missing or not finite: {bad}")
+    # NIQE and BRISQUE come from the packaged models, read by path, and
+    # not from their closed forms.
+    from srs_tpu_torch.qa.niqe import DATA_DIR, brisque_score, niqe_score
+
+    missing = [f for f in ("niqe_pristine.npz", "brisque_model.npz", "lpips_calib.json")
+               if not os.path.isfile(os.path.join(DATA_DIR, f))]
+    if missing:
+        fail(f"bench path: QA data files missing from {DATA_DIR}: {missing}")
+    proxy = torch.from_numpy(image).cuda().float()
+    packaged = {"niqe": niqe_score(proxy), "brisque": brisque_score(proxy)}
+    if any(v is None for v in packaged.values()):
+        fail(f"bench path: the packaged NIQE/BRISQUE models were not read: {packaged}")
+    report_path = path.rsplit(".", 1)[0] + "_qa_report.json"
+    if not os.path.isfile(report_path):
+        fail("bench path: no _qa_report.json beside the output")
+    if "quality_assessment" not in res.stage_times:
+        fail("bench path: no quality_assessment stage")
+    nums.update(
+        routing=routing, provider=info["provider"], models=info["models"],
+        sr_gain_alpha=info["sr_gain_alpha"], quality_score=res.quality_score,
+        packaged_scores_of_input=packaged,
+        report={k: v for k, v in report.items()},
+    )
+    return nums, pipe
+
+
+def profile_main_path(torch, K, pipe, image, tmp: str) -> dict:
+    """One more run of a path under torch.profiler: the device's busy share
     of the wall time, per pipeline stage and in all, and its time by kernel
-    and by launching op."""
+    and by launching op; each K1/K2 launch's device time beside its shape."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     path = os.path.join(tmp, "out_profiled.tiff")
+    shapes = {"pyr_down": [], "pyr_up": []}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+                 record_shapes=True) as prof, recorded_shapes(K, shapes):
         t0 = time.time()
         res = pipe.process(image, path)
         wall = time.time() - t0
@@ -514,7 +706,9 @@ def profile_main_path(torch, pipe, image, tmp: str) -> dict:
     # K1/K2 in all, whether or not they are among the largest, and each
     # launch's device time in launch order (K1: levels 0-4).
     pyramid = {k: [sum(ms for _, ms in v), len(v)] for k, v in launches.items()}
-    per_launch = {k: [ms for _, ms in sorted(v)] for k, v in launches.items()}
+    per_launch = {k: [[ms, *shapes[k][i]] if i < len(shapes[k]) else [ms]
+                      for i, (_, ms) in enumerate(sorted(v))]
+                  for k, v in launches.items()}
 
     def self_dev_ms(e):
         us = getattr(e, "self_device_time_total", None)
@@ -584,17 +778,27 @@ def main() -> int:
         t0 = time.time()
         emit("reference", t0, **reference_check(torch, tmp))
 
+        image = synthetic_image(MAIN_H, MAIN_W, seed=7)
         t0 = time.time()
-        main, pipe, image = main_path(torch, K, tmp)
+        main, main_pipe = main_path(torch, K, tmp, image)
         emit("main_path", t0, **main)
 
         t0 = time.time()
-        shapes = time_kernel_shapes(torch, K, main["held_against_plain"])
+        bench, bench_pipe = bench_path(torch, K, tmp, image)
+        emit("bench_path", t0, **bench)
+
+        t0 = time.time()
+        held = {"main_path": main["held_against_plain"],
+                "bench_path": bench["held_against_plain"]}
+        shapes = time_kernel_shapes(torch, K, held)
         emit("kernel_shapes", t0, **shapes)
 
         if want_profile:
             t0 = time.time()
-            emit("profile", t0, **profile_main_path(torch, pipe, image, tmp))
+            emit("profile", t0, **profile_main_path(torch, K, main_pipe, image, tmp))
+            t0 = time.time()
+            emit("profile_bench_path", t0,
+                 **profile_main_path(torch, K, bench_pipe, image, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -604,9 +808,12 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": "srs_tpu_torch/csrc/pyramid.cu",
             "replaces": f"srs_tpu/ops/pallas/pyramid_pallas.py:{line}",
-            "launches": main["launches"][name],
+            # the bench path is the system's main path (bench.py:69-83)
+            "launches": bench["launches"][name],
+            "launches_by_path": {"bench_path": bench["launches"][name],
+                                 "main_path": main["launches"][name]},
             "max_abs_err": max(d["max_abs_err"],
-                               main["held_against_plain"][name]["max_abs_err"]),
+                               *(h[name]["max_abs_err"] for h in held.values())),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
             "shapes": [{k: r[k] for k in ("in", "out", "launches", "ms", "bound_ms",

@@ -4,7 +4,8 @@ path of ``srs_tpu/ops/blend.py``).
 Ported: ``laplacian_fusion_tiles`` (reference 273-344) with its level
 clamp, ``_v2``, ``_build_gauss``, ``_accumulate_level_sep``,
 ``_collapse_step`` and ``_canvas_pyramid_blend_profiles`` (143-265), and
-``_finalize_band`` / ``blend_finalize_banded`` (538-692).
+``_finalize_band`` / ``blend_finalize_banded`` (538-692), with
+``as_device``.
 
 The math is the reference's; the execution shape is the port's own. The
 reference stages per-level programs, unrolls loops and caps chunks to fit
@@ -218,6 +219,7 @@ def blend_finalize_banded(
     crop_w: Optional[int] = None,
     to_uint8=False,
     as_iterator: bool = False,
+    as_device: bool = False,
 ):
     """Final level-0 collapse + exact-size bicubic resize + quantize, in
     uniform output row bands.
@@ -226,7 +228,9 @@ def blend_finalize_banded(
     ``laplacian_fusion_tiles(..., collapse_last=False)``; ``coarse=None``
     takes ``lap0`` as the finished canvas. Every band is computed on the
     device first; the host then fetches them in order. Returns an
-    (out_h, out_w, C) numpy array, or an iterator of row bands.
+    (out_h, out_w, C) numpy array, an iterator of row bands, or with
+    ``as_device`` the bands as one tensor on the device (the QA proxy,
+    reference blend.py:663).
     """
     src_h = crop_h if crop_h is not None else lap0.shape[0]
     src_w = crop_w if crop_w is not None else lap0.shape[1]
@@ -266,6 +270,9 @@ def blend_finalize_banded(
                 torch.from_numpy(r_h).to(dev), band_src_h, band_coarse_h,
                 out_w, w_plan, to_uint8,
             ))
+
+    if as_device:
+        return torch.cat(outs, dim=0)[:out_h]
 
     def bands_iter() -> Iterator[np.ndarray]:
         remaining = out_h

@@ -3,6 +3,10 @@
 
 - :func:`resize_bicubic_up`: integer-factor upscale, the base of every
   EDSR (``models/nets.py``);
+- :func:`resize_bicubic`: any target size, upscale or downscale (the QA
+  downsample comparison, ``qa/metrics.py``), on the same axis plans;
+- :func:`resize_area_int`: cv2 ``INTER_AREA`` at an integer factor, a box
+  mean (the SR-gain probe's degradation, ``models/routing.py``);
 - :func:`_down_axis_int`, :func:`_band_matrix`, :func:`_w_block_plan`,
   :func:`_resize_w_blocked`: the banded W resize of the finalize stage
   (``ops/blend.py:_finalize_band``).
@@ -22,7 +26,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["cubic_weights", "resize_bicubic_up"]
+__all__ = ["cubic_weights", "resize_bicubic", "resize_bicubic_up", "resize_area_int"]
 
 _A = -0.75  # cv2's bicubic coefficient
 
@@ -78,6 +82,40 @@ def _down_axis_int(x: torch.Tensor, axis: int, s: int) -> torch.Tensor:
         term = _strided(xp, axis, base + t, m, s) * float(w[t])
         acc = term if acc is None else acc + term
     return acc
+
+
+def _resize_axis(x: torch.Tensor, axis: int, dst_n: int) -> torch.Tensor:
+    """One axis to ``dst_n`` samples: identity, integer decimation, or a
+    4-tap gather weighted by the axis plan (reference resize.py:102-115)."""
+    src_n = x.shape[axis]
+    if src_n == dst_n:
+        return x
+    if src_n % dst_n == 0:
+        return _down_axis_int(x, axis, src_n // dst_n)
+    idx, w = _axis_plan(src_n, dst_n)
+    taps = x.index_select(axis, torch.from_numpy(idx.reshape(-1).astype(np.int64)).to(x.device))
+    shape = list(x.shape)
+    shape[axis : axis + 1] = [dst_n, 4]
+    taps = taps.reshape(shape)
+    wshape = [1] * len(shape)
+    wshape[axis], wshape[axis + 1] = dst_n, 4
+    return (taps * torch.from_numpy(w).to(x.device).reshape(wshape)).sum(dim=axis + 1)
+
+
+def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Resize (..., H, W, C) to (..., out_h, out_w, C), cv2 INTER_CUBIC
+    parity (no antialias on downscale, as cv2)."""
+    ah, aw = x.dim() - 3, x.dim() - 2
+    return _resize_axis(_resize_axis(x, ah, out_h), aw, out_w)
+
+
+def resize_area_int(x: torch.Tensor, s: int) -> torch.Tensor:
+    """cv2 INTER_AREA by an integer factor ``s`` on (..., H, W, C) whose H
+    and W are multiples of ``s``: the mean of each s x s box."""
+    *lead, h, w, c = x.shape
+    if h % s or w % s:
+        raise ValueError(f"resize_area_int: {h}x{w} is not divisible by {s}")
+    return x.reshape(*lead, h // s, s, w // s, s, c).mean(dim=(-4, -2))
 
 
 @lru_cache(maxsize=16)

@@ -1,15 +1,29 @@
 """SuperResolutionPipeline — the quality path (port of ``srs_tpu/pipeline.py``).
 
-Stages, as the reference runs them for provider ``quality`` with routing,
-per-scale selection and QA off:
+Stages, as the reference runs them for provider ``quality``
+(pipeline.py:896-1392):
 
-1. tiling: mirror-pad the image and cut one [N, B, B, 3] batch;
-2. super-resolution: the net ladder (e.g. [3, 3] for 720p -> 100MP) over
-   the batch, in chunks sized for the card's memory;
+1. tiling: load the image and upload it once; route it (degradation
+   estimate, then the SR-gain probe, which may send the job to the
+   ``shrink`` or ``bicubic`` ladder with a per-job alpha); choose the
+   ladder from the nets that per-scale selection serves; mirror-pad and
+   cut one [N, B, B, 3] batch;
+2. super-resolution: the ladder (e.g. [3, 3] for 720p -> 100MP) over the
+   batch, in chunks sized for the card's memory;
 3. blending: canvas-pyramid Laplacian blend with ramp profiles, level-0
    collapse deferred;
-4. save: banded finalize (level-0 collapse, exact-size bicubic, quantize)
-   streamed into the native TIFF writer.
+4. quality assessment (``enable_qa``): the save bands are computed first,
+   then an input-size proxy of the output is finalized on the device and
+   scored against the input (PSNR, SSIM, MS-SSIM, LPIPS, downsample
+   comparison) and on its own (NIQE, BRISQUE, ...);
+5. save: the bands stream into the native TIFF writer (with QA off the
+   banded finalize runs here); with QA on, crops of the streamed bands get
+   a full-resolution no-reference panel and the report is written beside
+   the output as ``<out>_qa_report.json``.
+
+Routing and the probe are best-effort, as in the reference: an exception
+there keeps the configured net and provider, and its text is recorded in
+``last_run_info["routing"]["errors"]``.
 
 Entry points run on ``PipelineConfig.device`` ("cuda" by default, which
 raises without a card). Like the reference, ``process()`` never raises: a
@@ -19,6 +33,8 @@ failure returns ``PipelineResult(success=False, error_message=...)``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import json
 import logging
 import os
 import time
@@ -28,11 +44,16 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .config import RESOLUTION_PRESETS, ModelConfig
+from .config import RESOLUTION_PRESETS, ModelConfig, QualityAssessmentConfig
 from .io.image import load_image
+from .models import routing
+from .models.lpips import LPIPSMetric
 from .models.sr_module import SuperResolutionModule, scale_ladder
 from .ops.blend import blend_finalize_banded, laplacian_fusion_tiles
 from .ops.weights import layout_weight_profiles
+from .qa import noref
+from .qa.module import QualityAssessmentModule
+from .qa.niqe import brisque_scores, niqe_scores
 from .tiling.tiling import TilingModule
 from .utils.device import resolve_device
 
@@ -45,25 +66,20 @@ __all__ = ["PipelineConfig", "PipelineResult", "SuperResolutionPipeline"]
 # 4608-px tiles in one chunk.
 _CHUNK_BYTES = 40e9
 
-# Features of the reference that this slice does not port, with the value
-# that keeps them off.
+# Options of the reference that this port does not serve yet, with the
+# values it does serve.
 _NOT_PORTED = {
-    "enable_qa": False,
-    "auto_route": False,
-    "per_scale_selection": False,
-    "provider": "quality",
-    "blend_method": "laplacian",
+    "provider": ("quality",),
+    "blend_method": ("laplacian",),
+    "sr_gain_route": ("shrink", "bicubic"),  # zssr needs per-image training
 }
 
 
 @dataclass
 class PipelineConfig:
-    """Pipeline knobs (reference: ``srs_tpu.pipeline.PipelineConfig``).
-
-    The fields the reference has but this slice does not port must keep
-    their "off" values (``_NOT_PORTED``); routing, per-scale selection and
-    QA default to off here, where the reference defaults them on.
-    """
+    """Pipeline knobs (reference: ``srs_tpu.pipeline.PipelineConfig``),
+    with the reference's defaults. Options outside ``_NOT_PORTED``'s
+    values raise ``NotImplementedError``."""
 
     block_size: int = 512
     overlap_ratio: float = 0.2
@@ -71,11 +87,25 @@ class PipelineConfig:
     target_resolution: str = "100MP"
     blend_method: str = "laplacian"
     num_pyramid_levels: int = 6
-    enable_qa: bool = False
+    enable_qa: bool = True
     provider: str = "quality"
     quality_model: str = "edsr_xl"
-    auto_route: bool = False
-    per_scale_selection: bool = False
+    # Probe each input's noise and blur (damaged inputs serve the robust
+    # net when it is trained) and its SR gain over bicubic.
+    auto_route: bool = True
+    robust_model: str = "edsr_l_robust"
+    # Below this probe gain (dB over bicubic) the job serves sr_gain_route:
+    # "shrink" (bicubic + alpha * (net - bicubic), alpha fitted on the
+    # probe's crops) or "bicubic".
+    sr_gain_floor: float = 0.0
+    sr_gain_route: str = "shrink"
+    # Texture-tier nets the shrink route may serve instead of the
+    # configured one when the probe predicts them better.
+    texture_models: Tuple[str, ...] = ()
+    # Each ladder step serves the panel-best trained net at its scale.
+    per_scale_selection: bool = True
+    # Directory whose EVAL.json selection reads before the packaged one.
+    checkpoint_dir: Optional[str] = None
     ibp_steps: int = 8  # back-projection steps; only untrained nets use them
     bit_depth: int = 8  # 8 or 16
     compute_dtype: str = "bfloat16"
@@ -83,11 +113,11 @@ class PipelineConfig:
     device: str = "cuda"
 
     def __post_init__(self) -> None:
-        for name, off in _NOT_PORTED.items():
-            if getattr(self, name) != off:
+        for name, served in _NOT_PORTED.items():
+            if getattr(self, name) not in served:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet "
-                    f"(ROADMAP Queue 1); use {off!r}"
+                    f"(ROADMAP Queue 1); use one of {served!r}"
                 )
         if self.bit_depth not in (8, 16):
             raise ValueError(f"bit_depth must be 8 or 16, got {self.bit_depth}")
@@ -122,17 +152,21 @@ def _timed(it, split: Dict[str, float], key: str):
 
 
 class SuperResolutionPipeline:
-    """tile -> SR -> blend -> save.
+    """tile -> SR -> blend -> assess -> save.
 
     ``weights`` maps ``(net name, scale)`` to a state dict
     (``models.registry.convert_flax_params`` or ``seeded_params``); nets
-    with weights count as trained.
+    with weights count as trained. ``lpips_params`` maps ``"vgg"`` /
+    ``"alex"`` to LPIPS feature state dicts
+    (``models.lpips.convert_lpips_params``); a net without one gets
+    seeded features.
     """
 
     def __init__(
         self,
         config: Optional[PipelineConfig] = None,
         weights: Optional[Mapping[Tuple[str, int], Mapping[str, torch.Tensor]]] = None,
+        lpips_params: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None,
     ):
         self.config = config or PipelineConfig()
         self.device = resolve_device(self.config.device)
@@ -144,12 +178,20 @@ class SuperResolutionPipeline:
         self.sr_module = SuperResolutionModule(
             ModelConfig(
                 quality_model=self.config.quality_model,
+                auto_route=self.config.auto_route,
+                robust_model=self.config.robust_model,
+                per_scale_selection=self.config.per_scale_selection,
                 compute_dtype=self.config.compute_dtype,
                 params_dtype=self.config.params_dtype,
+                checkpoint_dir=self.config.checkpoint_dir,
             ),
             weights,
             self.device,
         )
+        self.quality_module: Optional[QualityAssessmentModule] = None
+        if self.config.enable_qa:
+            self.quality_module = QualityAssessmentModule(
+                QualityAssessmentConfig(), self.device, LPIPSMetric(lpips_params, self.device))
         self.last_run_info: Dict[str, Any] = {}
 
     def _sync(self) -> None:
@@ -177,20 +219,81 @@ class SuperResolutionPipeline:
             tw = int(th * aspect)
         return (tw, th)
 
-    def _upscale_batch(self, tiles: torch.Tensor, ladder: List[int]) -> torch.Tensor:
-        """The net ladder over the tile batch, chunked to bound memory."""
+    def _route(self, image: torch.Tensor, scale_total: float):
+        """Degradation routing, the ladder, and the SR-gain probe
+        (reference pipeline.py:924-1022). Returns (ladder, routed model,
+        routed provider, alpha, record); the record also goes to
+        ``last_run_info["routing"]``."""
+        cfg, sr = self.config, self.sr_module
+        info: Dict[str, Any] = {"degradation": None, "sr_gain": None, "alpha": None,
+                                "errors": []}
+        routed_model: Optional[str] = None
+        try:
+            routed_model, est = sr.route_for(image)
+            if est is not None:
+                info["degradation"] = dataclasses.asdict(est)
+        except Exception as e:  # noqa: BLE001 - routing is best-effort
+            routed_model = None
+            info["errors"].append(f"routing: {type(e).__name__}: {e}")
+            logger.warning("degradation routing failed: %s", e)
+        ladder = scale_ladder(scale_total, trained=sr.trained_scales(model=routed_model))
+        routed_provider: Optional[str] = None
+        alpha: Optional[float] = None
+        if cfg.auto_route and routed_model is None and ladder:
+            try:
+                probe_model = sr.resolve_ladder_models([int(ladder[0])])[0]
+                args = dict(weights=sr.weights, device=self.device, nets=sr.probe_nets)
+                sr_gain, shrink_alpha = None, None
+                if cfg.sr_gain_route == "shrink":
+                    res = routing.probe_sr_alpha(image, probe_model, int(ladder[0]), **args)
+                    if res is not None:
+                        sr_gain, shrink_alpha = res
+                else:
+                    sr_gain = routing.probe_sr_gain(image, probe_model, int(ladder[0]), **args)
+                info["sr_gain"], info["alpha"] = sr_gain, shrink_alpha
+                if sr_gain is not None and sr_gain < cfg.sr_gain_floor:
+                    routed_provider = cfg.sr_gain_route
+                    if routed_provider == "shrink":
+                        alpha = round(float(shrink_alpha if shrink_alpha is not None else 0.0), 3)
+                        # a candidate must be trained at every ladder scale
+                        cands = tuple(c for c in cfg.texture_models
+                                      if all(sr.is_trained(c, int(s)) for s in set(ladder)))
+                        if cands:
+                            best = routing.best_shrink_candidate(
+                                image, (probe_model,) + cands, int(ladder[0]), **args)
+                            if best is not None and best[0] != probe_model:
+                                routed_model, alpha = best[0], round(best[2], 3)
+                    logger.info("SR-gain probe: %s x%d measures %+.2f dB vs bicubic -> %s%s",
+                                probe_model, int(ladder[0]), sr_gain, routed_provider,
+                                f" (alpha {alpha:.3f})" if alpha is not None else "")
+            except Exception as e:  # noqa: BLE001 - the probe is best-effort
+                routed_provider, alpha = None, None
+                info["errors"].append(f"probe: {type(e).__name__}: {e}")
+                logger.warning("SR-gain probe failed: %s", e)
+        return ladder, routed_model, routed_provider, alpha, info
+
+    def _upscale_batch(self, tiles: torch.Tensor, ladder: List[int],
+                       provider: Optional[str] = None, model: Optional[str] = None,
+                       alpha: Optional[float] = None) -> torch.Tensor:
+        """The net ladder over the tile batch, chunked to bound memory.
+        ``alpha`` is this job's shrinkage (the shrink provider only)."""
+        provider = provider or self.config.provider
         n = int(tiles.shape[0])
         final_block = int(tiles.shape[1]) * int(np.prod(ladder)) if ladder else int(tiles.shape[1])
         # ~160 B per output pixel: feature maps at the last step's input
-        # resolution plus the float32 output (the reference's estimate).
-        chunk = max(1, min(n, int(_CHUNK_BYTES // (final_block * final_block * 160))))
+        # resolution plus the float32 output (the reference's estimate);
+        # the shrink provider holds one more output (the bicubic arm).
+        per_px = 200 if provider == "shrink" else 160
+        chunk = max(1, min(n, int(_CHUNK_BYTES // (final_block * final_block * per_px))))
         outs = []
         for i in range(0, n, chunk):
             cur = tiles[i : i + chunk]
             for si, s in enumerate(ladder):
                 last = si == len(ladder) - 1
                 cur = self.sr_module.upscale_tiles(
-                    cur, s, steps=self.config.ibp_steps if last else 0
+                    cur, s, provider=provider,
+                    steps=self.config.ibp_steps if last else 0, model=model,
+                    alpha=1.0 if alpha is None else alpha,
                 )
             outs.append(cur)
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
@@ -205,6 +308,53 @@ class SuperResolutionPipeline:
             collapse_last=False,
         )
 
+    @staticmethod
+    def _sample_fullres_crops(band: np.ndarray, row0: int, total_h: int,
+                              crops: List[np.ndarray], max_crops: int = 6,
+                              crop: int = 256) -> None:
+        """Collect output crops from the save bands as they stream
+        (reference pipeline.py:784-802)."""
+        if len(crops) >= max_crops:
+            return
+        bh, bw = band.shape[:2]
+        cs = min(crop, bh, bw)
+        if cs < 16:
+            return
+        for frac in (0.2, 0.5, 0.8):
+            r = int(total_h * frac)
+            if row0 <= r < row0 + bh and len(crops) < max_crops:
+                y = max(0, min(r - row0, bh - cs))
+                for xf in (0.25, 0.7):
+                    x = max(0, min(int(bw * xf), bw - cs))
+                    crops.append(np.array(band[y : y + cs, x : x + cs]))
+
+    def _fullres_noref(self, crops: List[np.ndarray]) -> Dict[str, Any]:
+        """NIQE, BRISQUE, sharpness and contrast averaged over full-resolution
+        output crops, each shape group scored in one batch on the device
+        (reference pipeline.py:804-846)."""
+        acc: Dict[str, List[float]] = {}
+        by_shape: Dict[Tuple[int, ...], List[np.ndarray]] = {}
+        for c in crops:
+            arr = c.astype(np.float32)
+            if c.dtype == np.uint16:
+                arr = arr / 257.0
+            by_shape.setdefault(arr.shape, []).append(arr)
+        for group in by_shape.values():
+            batch = torch.from_numpy(np.stack(group)).to(self.device)
+            raw = noref.no_reference_metrics(batch)
+            host = {k: v.cpu().numpy().astype(np.float64) for k, v in raw.items()}
+            nq, bq = niqe_scores(batch), brisque_scores(batch)
+            for i in range(len(group)):
+                acc.setdefault("niqe", []).append(
+                    float(nq[i]) if nq[i] is not None else float(host["niqe"][i]))
+                acc.setdefault("brisque", []).append(
+                    float(bq[i]) if bq[i] is not None else float(host["brisque"][i]))
+                acc.setdefault("sharpness", []).append(float(host["sharpness"][i]))
+                acc.setdefault("contrast", []).append(float(host["contrast"][i]))
+        out: Dict[str, Any] = {f"fullres_{k}": float(np.mean(v)) for k, v in acc.items()}
+        out["fullres_crops"] = len(crops)
+        return out
+
     def process(
         self,
         input_path: Union[str, np.ndarray],
@@ -212,7 +362,7 @@ class SuperResolutionPipeline:
     ) -> PipelineResult:
         """Super-resolve one image (a path or an (H, W, 3) array in
         [0, 255]) to ``target_resolution`` and write ``output_path``
-        (.tif/.tiff)."""
+        (.tif/.tiff), plus ``<out>_qa_report.json`` with QA on."""
         start = time.time()
         stage_times: Dict[str, float] = {}
         try:
@@ -248,47 +398,96 @@ class SuperResolutionPipeline:
             )
             h, w = image.shape[:2]
             tw, th = self._calculate_target_size((w, h), self.config.target_resolution)
-            ladder = scale_ladder(max(tw / w, th / h), trained=self.sr_module.trained_scales())
-            layout, tiles = self.tiling_module.split_to_batch(image, self.device)
+            # One upload: routing, tiling and QA read this copy.
+            image_dev = torch.from_numpy(np.ascontiguousarray(image, np.float32)).to(self.device)
+            ladder, routed_model, routed_provider, alpha, route_info = self._route(
+                image_dev, max(tw / w, th / h))
+            layout, tiles = self.tiling_module.split_to_batch(image_dev, self.device)
 
         with self._stage("super_resolution", stage_times):
-            up_tiles = self._upscale_batch(tiles, ladder)
+            up_tiles = self._upscale_batch(tiles, ladder, routed_provider, routed_model, alpha)
             del tiles
         net_scale = int(np.prod(ladder)) if ladder else 1
-        self.last_run_info = {"ladder": list(ladder), "num_tiles": int(layout.num_tiles)}
+        prov_used = routed_provider or self.config.provider
+        step_models = model_used = None
+        if prov_used in ("quality", "shrink"):
+            step_models = self.sr_module.resolve_ladder_models(ladder, routed_model)
+            model_used = routed_model or (step_models[0] if step_models
+                                          else self.config.quality_model)
+        route_info.update(provider=prov_used, model=routed_model, ladder_models=step_models)
+        self.last_run_info = {
+            "ladder": list(ladder),
+            "num_tiles": int(layout.num_tiles),
+            "block": int(layout.block),
+            "provider": prov_used,
+            "model": model_used,
+            "models": step_models,
+            "sr_gain_probe": route_info["sr_gain"],
+            "sr_gain_alpha": alpha if prov_used == "shrink" else None,
+            "routing": route_info,
+        }
 
         with self._stage("blending", stage_times):
             out_layout = layout.scaled(net_scale)
             canvas = self._blend(up_tiles, out_layout)
             del up_tiles
+        lap0, coarse = canvas if isinstance(canvas, tuple) else (canvas, None)
+        crop = dict(crop_h=min(out_layout.padded_h, layout.image_h * net_scale),
+                    crop_w=min(out_layout.padded_w, layout.image_w * net_scale))
+        quant = "uint16" if self.config.bit_depth == 16 else True
 
-        split = {"fetch": 0.0, "write": 0.0}
-        with self._stage("save", stage_times):
+        split: Dict[str, float] = {"fetch": 0.0, "write": 0.0}
+
+        def save_bands():
             t0 = time.time()
-            lap0, coarse = canvas if isinstance(canvas, tuple) else (canvas, None)
-            bands = blend_finalize_banded(
-                lap0, coarse, th, tw, bands=8,
-                crop_h=min(out_layout.padded_h, layout.image_h * net_scale),
-                crop_w=min(out_layout.padded_w, layout.image_w * net_scale),
-                to_uint8="uint16" if self.config.bit_depth == 16 else True,
-                as_iterator=True,
-            )
+            bands = blend_finalize_banded(lap0, coarse, th, tw, bands=8, to_uint8=quant,
+                                          as_iterator=True, **crop)
             self._sync()
             split["finalize"] = time.time() - t0
+            return bands
+
+        quality_report: Optional[Dict[str, Any]] = None
+        bands = None
+        if self.quality_module is not None:
+            with self._stage("quality_assessment", stage_times):
+                bands = save_bands()  # first, as the reference dispatches them
+                # The input-size proxy never leaves the device.
+                small = blend_finalize_banded(lap0, coarse, h, w, bands=2, to_uint8=False,
+                                              as_device=True, **crop).clamp_(0, 255)
+                fr = self.quality_module.evaluate_full_reference(image_dev, small)
+                nr = self.quality_module.evaluate_no_reference(small)
+                quality_report = {**fr, **nr}
+
+        with self._stage("save", stage_times):
+            if bands is None:
+                bands = save_bands()
             from .io.native import TiffStreamWriter
 
+            crops: List[np.ndarray] = []
             # Deflate is pure loss on a single-core host.
             writer = TiffStreamWriter(output_path, th, tw, bit_depth=self.config.bit_depth,
                                       compress=(os.cpu_count() or 1) > 1)
             try:
+                row0 = 0
                 for band in _timed(bands, split, "fetch"):
                     ts = time.time()
                     writer.write(band)
                     split["write"] += time.time() - ts
+                    if quality_report is not None:
+                        self._sample_fullres_crops(band, row0, th, crops)
+                    row0 += band.shape[0]
             finally:
                 ts = time.time()
                 writer.close()  # joins the deflate threads and writes the file
                 split["close"] = time.time() - ts
+            if quality_report is not None:
+                ts = time.time()
+                if crops:
+                    quality_report.update(self._fullres_noref(crops))
+                report_path = output_path.rsplit(".", 1)[0] + "_qa_report.json"
+                with open(report_path, "w", encoding="utf-8") as f:
+                    json.dump(quality_report, f, indent=2, ensure_ascii=False)
+                split["fullres_qa"] = time.time() - ts
         self.last_run_info["save_breakdown"] = split
 
         return PipelineResult(
@@ -298,8 +497,8 @@ class SuperResolutionPipeline:
             total_blocks=layout.num_tiles,
             successful_blocks=layout.num_tiles,
             failed_blocks=0,
-            quality_score=None,
-            quality_report=None,
+            quality_score=quality_report.get("overall_score") if quality_report else None,
+            quality_report=quality_report,
             error_message=None,
             stage_times=stage_times,
         )

@@ -13,6 +13,8 @@ order flip rounding ties). bfloat16 nets: PSNR between the outputs >= 45 dB
 (the two frameworks round bf16 at different places).
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,8 +60,10 @@ def weights():
 
 
 def _port(dtype="float32", model="edsr_m", **kw):
+    # routing, per-scale selection and QA off, as the reference below
     cfg = dict(block_size=64, target_resolution=TARGET, quality_model=model,
-               ibp_steps=4, compute_dtype=dtype, device="cpu")
+               ibp_steps=4, compute_dtype=dtype, device="cpu", auto_route=False,
+               per_scale_selection=False, enable_qa=False)
     cfg.update(kw)
     return PipelineConfig(**cfg)
 
@@ -145,9 +149,8 @@ def test_process_returns_failure_instead_of_raising(image, tmp_path):
     assert not res.success and "TIFF" in res.error_message
 
 
-@pytest.mark.parametrize("field,value", [("enable_qa", True), ("auto_route", True),
-                                         ("per_scale_selection", True), ("provider", "fast"),
-                                         ("blend_method", "weighted")])
+@pytest.mark.parametrize("field,value", [("provider", "fast"), ("blend_method", "weighted"),
+                                         ("sr_gain_route", "zssr")])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="not ported"):
         PipelineConfig(device="cpu", **{field: value})
@@ -176,3 +179,149 @@ def test_tiff_roundtrip(tmp_path, bit_depth, compress):
         for r0 in range(0, 70, 16):
             w.write(img[r0 : r0 + 16])
     np.testing.assert_array_equal(read_tiff(path), img)
+
+
+# -- the bench path: routing, the SR-gain probe, per-scale selection and QA
+# on, as bench.py:69-83 runs it, at toy size. The reference serves its
+# packaged checkpoints; the port gets them converted, for the nets the
+# reference's selection can serve on this ladder (edsr_xl at x2/x3/x4,
+# edsr_l at x2), and the packaged LPIPS features converted.
+#
+# Tolerances: the TIFF within 1 LSB. Routing: the same decision, ladder and
+# ladder models; the probe's gain within 0.1 dB and alpha within 0.01 (its
+# nets run in bfloat16 on both sides), on inputs whose reference gain lies
+# at least 0.2 dB from the floor. The report: the same keys; with the
+# quality route the values within the module tests' tolerances (PSNR 1e-3
+# dB, SSIM and MS-SSIM 1e-5, NIQE and BRISQUE relative 2e-2, the rest
+# relative 1e-4; tests/test_torch_qa.py says where each comes from). The
+# full-resolution panel scores crops of the 8-bit output, which differs by
+# 1 LSB at a few samples: its other values within relative 1e-2. With the shrink route the served
+# alpha may differ by 0.001 after rounding, which moves the output by
+# up to 0.001 x |net - bicubic|: values within relative 2e-2.
+
+BENCH_TARGET = "1008x864"  # 96x112 -> x9, a [3, 3] ladder
+GAIN_ATOL_DB, ALPHA_ATOL, MARGIN_DB = 0.1, 0.01, 0.2
+
+
+def _bench_image(h=96, w=112):
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([127 + 90 * np.sin(xx / 13), 127 + 90 * np.cos(yy / 11),
+                    127 + 90 * np.sin((xx + yy) / 7)], -1)
+    return np.clip(img + rng.normal(0, 2, img.shape), 0, 255).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def bench_weights():
+    from srs_tpu.models.lpips import LPIPSMetric as JaxLPIPS
+    from srs_tpu_torch.models.lpips import convert_lpips_params
+
+    w = {k: v for k, v in _converted("edsr_xl").items()}
+    _, params = jax_build("edsr_l", 2, dtype=jnp.float32)
+    w[("edsr_l", 2)] = convert_flax_params(jax.tree_util.tree_map(np.asarray, params))
+    jl = JaxLPIPS()
+    lp = {net: convert_lpips_params(jax.tree_util.tree_map(np.asarray, jl._load_checkpoint(net)))
+          for net in ("vgg", "alex")}
+    return w, lp
+
+
+def _bench_port(floor, **kw):
+    cfg = dict(block_size=64, target_resolution=BENCH_TARGET, ibp_steps=4,
+               compute_dtype="float32", device="cpu", sr_gain_floor=floor)
+    return PipelineConfig(**{**cfg, **kw})
+
+
+def _report_close(got, ref, rel_all=None):
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        g = got[k]
+        if isinstance(v, str) or k == "fullres_crops":
+            assert g == v, k
+        elif np.isnan(v):
+            assert np.isnan(g), k
+        elif rel_all is not None:
+            assert g == pytest.approx(v, rel=rel_all, abs=1e-6), k
+        elif k.startswith("psnr"):
+            assert abs(g - v) <= 1e-3, k
+        elif k.startswith(("ssim", "ms_ssim")):
+            assert abs(g - v) <= 1e-5, k
+        elif k in ("niqe", "brisque", "fullres_niqe", "fullres_brisque"):
+            assert g == pytest.approx(v, rel=2e-2), k
+        elif k.startswith("fullres_"):
+            assert g == pytest.approx(v, rel=1e-2), k
+        else:
+            assert g == pytest.approx(v, rel=1e-4, abs=1e-6), k
+
+
+@pytest.mark.parametrize("floor,route", [(0.0, "quality"), (5.0, "shrink")])
+def test_bench_path_matches_reference(bench_weights, tmp_path, floor, route):
+    image = _bench_image()
+    jcfg = JaxConfig(block_size=64, overlap_ratio=0.2, target_resolution=BENCH_TARGET,
+                     ibp_steps=4, sr_gain_floor=floor)
+    assert jcfg.auto_route and jcfg.per_scale_selection and jcfg.enable_qa
+    jpipe = JaxPipeline(jcfg)
+    jpipe._ensure_engine()
+    jpipe.sr_module.config.compute_dtype = "float32"
+    jres = jpipe.process(image, str(tmp_path / "ref.tiff"))
+    assert jres.success, jres.error_message
+    ref_info = jpipe.last_run_info
+
+    weights, lpips = bench_weights
+    cfg = _bench_port(floor)
+    assert cfg.auto_route and cfg.per_scale_selection and cfg.enable_qa
+    pipe = SuperResolutionPipeline(cfg, weights, lpips)
+    res = pipe.process(image, str(tmp_path / "out.tiff"))
+    assert res.success, res.error_message
+    info = pipe.last_run_info
+
+    assert abs(ref_info["sr_gain_probe"] - floor) >= MARGIN_DB
+    assert abs(info["sr_gain_probe"] - ref_info["sr_gain_probe"]) <= GAIN_ATOL_DB
+    for key in ("ladder", "provider", "model", "models"):
+        assert info[key] == ref_info[key], key
+    assert info["provider"] == route and info["ladder"] == [3, 3]
+    assert info["models"] == ["edsr_xl", "edsr_xl"]
+    routing = info["routing"]
+    assert routing["errors"] == [] and routing["degradation"]["reason"] == "clean"
+    if route == "shrink":
+        assert abs(info["sr_gain_alpha"] - ref_info["sr_gain_alpha"]) <= ALPHA_ATOL
+    else:
+        assert info["sr_gain_alpha"] is None is ref_info["sr_gain_alpha"]
+    assert set(res.stage_times) == set(jres.stage_times) == {
+        "tiling", "super_resolution", "blending", "quality_assessment", "save"}
+
+    got = read_tiff(res.output_path).astype(np.int16)
+    ref = read_tiff(jres.output_path).astype(np.int16)
+    assert got.shape == ref.shape == (864, 1008, 3)
+    assert np.abs(got - ref).max() <= 1
+
+    _report_close(res.quality_report, jres.quality_report,
+                  rel_all=2e-2 if route == "shrink" else None)
+    assert res.quality_score == res.quality_report["overall_score"]
+    with open(str(tmp_path / "out_qa_report.json")) as f:
+        written = json.load(f)
+    assert set(written) == set(res.quality_report)
+
+
+def test_shrink_alpha_is_per_job(weights, tmp_path):
+    """Each job serves its own probe's alpha: jobs run in a row give what
+    each gives alone (the reference keeps alpha on the pipeline between
+    jobs)."""
+    clean = _bench_image()
+    noise = (np.random.default_rng(9).random((96, 112, 3)) * 255).astype(np.float32)
+    cfg = dict(target_resolution="336x288", quality_model="edsr_m", compute_dtype="float32")
+
+    def run(pipe, image, name):
+        res = pipe.process(image, str(tmp_path / name))
+        assert res.success, res.error_message
+        return read_tiff(res.output_path), dict(pipe.last_run_info), res.quality_report
+
+    pipe = SuperResolutionPipeline(_bench_port(0.0, **cfg), weights)
+    in_a_row = [run(pipe, im, f"row{i}.tiff") for i, im in enumerate((noise, clean, noise))]
+    alone = [run(SuperResolutionPipeline(_bench_port(0.0, **cfg), weights), im, f"alone{i}.tiff")
+             for i, im in enumerate((noise, clean))]
+    assert in_a_row[0][1]["provider"] == "shrink" and in_a_row[1][1]["provider"] == "quality"
+    assert in_a_row[1][1]["sr_gain_alpha"] is None
+    for (img, info, report), (img1, info1, report1) in zip(in_a_row, alone + alone[:1]):
+        np.testing.assert_array_equal(img, img1)
+        assert info["sr_gain_alpha"] == info1["sr_gain_alpha"]
+        assert json.dumps(report, sort_keys=True) == json.dumps(report1, sort_keys=True)
