@@ -34,8 +34,26 @@ in order, each printing one JSON line with its seconds:
    smoke writes, QA with the full-resolution panel and the report file),
    warmed up with every launch held against the plain version, then run
    with the launch counts reset;
-7. kernel_shapes: K1 and K2 timed at every distinct (input, output)
-   shape that the two warm-up runs launched, each with its launches per
+7. cli_path: the command line, ``srs_tpu_torch.cli.main`` in this
+   process, as a user runs ``python -m srs_tpu_torch process in.png
+   out.tiff --target 100MP --blend multi_band --seam-repair
+   --color-correction --content-aware`` with no weights (``edsr_xl`` at
+   full width untrained, so 8 IBP steps run): the 720x1280 input written
+   as PNG by the port's encoder and decoded back exactly; a warm-up with
+   every K1/K2 launch held against the plain version, then a run with the
+   launch counts reset; its MP/s, stage times, peak memory, IBP seconds,
+   seam and box counts and launches by shape; then ``python3 -m
+   srs_tpu_torch process`` once in a subprocess at 1024x576;
+8. other_blends: ``weighted``, ``feather``, ``gradient_domain`` and
+   ``poisson`` through ``process()`` at full width, QA off, each with its
+   blending seconds and the peak memory of the blend;
+9. blend_reference: card against CPU on small inputs, untrained nets with
+   IBP: each of the six blends, and ``multi_band`` with seam repair,
+   colour correction and content-aware seams, TIFFs within 1 LSB; and
+   seam detection and repair of a scene with medium and high seams, the
+   same seams and canvases within 1e-3;
+10. kernel_shapes: K1 and K2 timed at every distinct (input, output)
+   shape that the three warm-up runs launched, each with its launches per
    path, bound and share of the bound.
 
 With ``--profile`` it then runs both paths once more under
@@ -43,7 +61,7 @@ With ``--profile`` it then runs both paths once more under
 all, its time by kernel (K1 and K2 always, in all and per launch with its
 shape) and by op, and the in-place adds by input shape.
 Then it prints a ``done`` line with the total seconds, the kernels' JSON
-line (each kernel's entry with its ``shapes`` of phase 6), the ``nvidia-smi``
+line (each kernel's entry with its ``shapes`` of phase 10), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Without a CUDA card, or without the port
 beside it, it exits with code 2 and prints no result. Outputs go to a
@@ -520,6 +538,40 @@ def compare_bench_runs(info, report, cpu_info, cpu_report) -> dict:
             "report_diffs": diffs}
 
 
+def check_held(K, name: str, records) -> dict:
+    """Every launch of a warm-up run was held against its plain version
+    (``records`` of :func:`held_against_plain`), within the tolerance.
+    Returns, per kernel, the calls, the worst error and each launch's
+    [input shape, output shape, error]."""
+    held = {}
+    for kname, shape_in, shape_out, e in records:
+        h = held.setdefault(kname, {"calls": 0, "max_abs_err": 0.0, "shapes": []})
+        h["calls"] += 1
+        h["max_abs_err"] = max(h["max_abs_err"], e)
+        h["shapes"].append([shape_in, shape_out, e])
+    for kname, n in K.LAUNCHES.items():
+        h = held.get(kname, {"calls": 0, "max_abs_err": 0.0})
+        if n == 0 or h["calls"] != n:
+            fail(f"{name}: {kname}: {n} launches in the warm-up run, {h['calls']} held "
+                 "against the plain version")
+        if h["max_abs_err"] > KERNEL_ATOL:
+            fail(f"{name}: {kname} disagrees with its plain version: "
+                 f"max abs err {h['max_abs_err']} > {KERNEL_ATOL}")
+    return held
+
+
+def launches_by_shape(held: dict) -> dict:
+    """Per kernel, "in -> out" shape and its launches in one run."""
+    out = {}
+    for kname, h in held.items():
+        counts = {}
+        for shape_in, shape_out, _e in h["shapes"]:
+            key = f"{shape_in} -> {shape_out}"
+            counts[key] = counts.get(key, 0) + 1
+        out[kname] = counts
+    return out
+
+
 def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, **flags):
     """One path of ``process()`` on the 720x1280 input to the 100MP preset:
     a warm-up run with every K1/K2 launch held against its plain version,
@@ -546,21 +598,7 @@ def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, **flags):
     if not warm.success:
         fail(f"{name}: warm-up process() failed: {warm.error_message}")
     os.remove(path)
-    # Every launch of the warm-up run was held against its plain version.
-    held = {}
-    for kname, shape_in, shape_out, e in records:
-        h = held.setdefault(kname, {"calls": 0, "max_abs_err": 0.0, "shapes": []})
-        h["calls"] += 1
-        h["max_abs_err"] = max(h["max_abs_err"], e)
-        h["shapes"].append([shape_in, shape_out, e])
-    for kname, n in K.LAUNCHES.items():
-        h = held.get(kname, {"calls": 0, "max_abs_err": 0.0})
-        if n == 0 or h["calls"] != n:
-            fail(f"{name}: {kname}: {n} launches in the warm-up run, {h['calls']} held "
-                 "against the plain version")
-        if h["max_abs_err"] > KERNEL_ATOL:
-            fail(f"{name}: {kname} disagrees with its plain version: "
-                 f"max abs err {h['max_abs_err']} > {KERNEL_ATOL}")
+    held = check_held(K, name, records)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -658,6 +696,290 @@ def bench_path(torch, K, tmp: str, image: np.ndarray):
         report={k: v for k, v in report.items()},
     )
     return nums, pipe
+
+
+# The command line's full-width run: the reference's ``process`` flags
+# with every post-pass on, and defaults otherwise (provider quality,
+# edsr_xl, 8 IBP steps, routing, per-scale selection and QA on).
+CLI_FLAGS = ["--target", "100MP", "--blend", "multi_band", "--seam-repair",
+             "--color-correction", "--content-aware"]
+OTHER_BLENDS = ("weighted", "feather", "gradient_domain", "poisson")
+ALL_BLENDS = ("laplacian", "multi_band") + OTHER_BLENDS
+
+
+@contextlib.contextmanager
+def captured_runs(torch):
+    """While open, records each ``SuperResolutionPipeline.process`` call as
+    (pipeline, result), and the card seconds of the steps inside its SR
+    and blending stages, each synchronised before and after: ``ibp``
+    (each back-projection call), ``blend_weights`` (the dense weights,
+    content-aware ones with the content analysis), ``blend`` (the fusion
+    itself), ``seam_repair`` and ``color_correction``."""
+    import srs_tpu_torch.models.sr_module as sr_module
+    import srs_tpu_torch.pipeline as pipeline
+
+    runs, steps = [], {}
+    cls = pipeline.SuperResolutionPipeline
+    sites = {"ibp": (sr_module, "back_project"), "blend_weights": (cls, "_blend_weights"),
+             "blend": (pipeline, "laplacian_fusion_tiles"), "seam_repair": (cls, "_repair"),
+             "color_correction": (pipeline, "color_correction")}
+    saved = {name: getattr(owner, attr) for name, (owner, attr) in sites.items()}
+    process = cls.process
+
+    def recorded(self, *args, **kwargs):
+        res = process(self, *args, **kwargs)
+        runs.append((self, res))
+        return res
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            steps.setdefault(name, []).append(time.time() - t0)
+            return out
+        return call
+
+    cls.process = recorded
+    for name, (owner, attr) in sites.items():
+        setattr(owner, attr, timed(name, saved[name]))
+    try:
+        yield runs, steps
+    finally:
+        cls.process = process
+        for name, (owner, attr) in sites.items():
+            setattr(owner, attr, saved[name])
+
+
+def cv2_version():
+    """OpenCV's version where it imports (the content analysis's face and
+    text detectors run only then), else None."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2.__version__
+
+
+def cli_path(torch, K, tmp: str, image: np.ndarray) -> dict:
+    """The command line at full width on the card (module docstring, phase 7)."""
+    from srs_tpu_torch import cli
+    from srs_tpu_torch.io.image import load_image, save_image
+    from srs_tpu_torch.io.native import read_tiff
+
+    png = os.path.join(tmp, "in.png")
+    save_image(png, image)
+    t0 = time.time()
+    decoded = load_image(png)
+    decode_s = time.time() - t0
+    if not np.array_equal(decoded, np.clip(image, 0, 255).astype(np.uint8).astype(np.float32)):
+        fail("cli_path: the PNG the port wrote does not decode to its pixels")
+    out = os.path.join(tmp, "cli.tiff")
+    argv = ["process", png, out, *CLI_FLAGS]
+
+    K.reset_launches()
+    with held_against_plain(K) as records, captured_runs(torch) as (runs, _ibp):
+        if cli.main(argv) != 0:
+            fail(f"cli_path: warm-up main({argv}) failed")
+    held = check_held(K, "cli_path", records)
+    warm_pipe, warm = runs[-1]
+    os.remove(out)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    with captured_runs(torch) as (runs, steps):
+        t0 = time.time()
+        rc = cli.main(argv)
+        elapsed = time.time() - t0
+    ibp = steps.get("ibp", [])
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0 or len(runs) != 1:
+        fail(f"cli_path: main({argv}) returned {rc}")
+    for kname, n in launches.items():
+        if n <= 0:
+            fail(f"cli_path never launched kernel {kname}")
+    pipe, res = runs[0]
+    cfg, info = pipe.config, pipe.last_run_info
+    if cfg.blend_method != "multi_band" or not (cfg.enable_seam_repair and
+                                                cfg.enable_color_correction and
+                                                cfg.content_aware and cfg.enable_qa):
+        fail(f"cli_path: the flags did not reach the config: {cfg}")
+    if info["ladder"] != [3, 3] or any(pipe.sr_module.is_trained(m, 3) for m in info["models"]):
+        fail(f"cli_path: expected untrained nets on [3, 3], got {info['ladder']} "
+             f"{info['models']}")
+    if len(ibp) != 1 or cfg.ibp_steps != 8:
+        fail(f"cli_path: IBP ran {len(ibp)} times with {cfg.ibp_steps} steps")
+    if "seam_repair" not in info or "error" in info.get("content", {"error": "not run"}):
+        fail(f"cli_path: seam repair or the content analysis did not run: "
+             f"{info.get('seam_repair')}, {info.get('content')}")
+    w, h = MAIN_OUT
+    got = read_tiff(out)
+    if got.shape != (h, w, 3) or got.dtype != np.uint8:
+        fail(f"cli_path: output {got.shape} {got.dtype} != ({h}, {w}, 3) uint8")
+    mean_in, mean_out = image.mean(axis=(0, 1)), got.mean(axis=(0, 1), dtype=np.float64)
+    if np.abs(mean_in - mean_out).max() > 10.0 or got.std() < 10:
+        fail(f"cli_path: output statistics off: input means {mean_in}, output means "
+             f"{mean_out}, std {got.std()}")
+    report = res.quality_report or {}
+    bad = [k for k in REPORT_KEYS if not np.isfinite(report.get(k, float("nan")))]
+    if bad:
+        fail(f"cli_path: report values missing or not finite: {bad}")
+
+    small = os.path.join(tmp, "sub.tiff")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "srs_tpu_torch", "process", png, small, "--target", "1024x576"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=300)
+    sub_s = time.time() - t0
+    if proc.returncode != 0 or not proc.stdout.startswith(f"OK {small}"):
+        fail(f"cli_path: python3 -m srs_tpu_torch process exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    if read_tiff(small).shape != (576, 1024, 3):
+        fail(f"cli_path: the subprocess wrote {read_tiff(small).shape}")
+    return {
+        "argv": argv,
+        "png_decode_s": decode_s,
+        "png_bytes": os.path.getsize(png),
+        "stage_times": res.stage_times,
+        "warmup_stage_times": warm.stage_times,
+        "elapsed_s": elapsed,
+        "mp_per_s": w * h / 1e6 / elapsed,
+        "peak_mem_gb": peak,
+        "ibp_s": ibp[0],
+        "ibp_shape": [6, 4608, 4608, 3],
+        "step_seconds": {k: sum(v) for k, v in steps.items()},
+        "ladder": info["ladder"],
+        "models": info["models"],
+        "routing": {"provider": info["provider"], "sr_gain": info["routing"]["sr_gain"],
+                    "errors": info["routing"]["errors"]},
+        "seam_repair": info["seam_repair"],
+        "warmup_seam_repair": warm_pipe.last_run_info["seam_repair"],
+        "content": info["content"],
+        "cv2": cv2_version(),
+        "quality_score": res.quality_score,
+        "save_breakdown": info["save_breakdown"],
+        "launches": launches,
+        "launches_by_shape": launches_by_shape(held),
+        "held_against_plain": held,
+        "subprocess": {"argv_tail": ["--target", "1024x576"], "seconds": sub_s,
+                       "stdout": proc.stdout.strip().splitlines()},
+    }
+
+
+def other_blends(torch, tmp: str, image: np.ndarray) -> dict:
+    """``process()`` with each other blend at full width, QA off, no
+    weights: blending seconds, and the peak and added memory of the blend
+    (``_blend`` alone: the Poisson solve's temporaries show there)."""
+    import srs_tpu_torch.pipeline as pipeline
+    from srs_tpu_torch.io.native import read_tiff
+
+    cls = pipeline.SuperResolutionPipeline
+    blend = cls._blend
+    mem = {}
+
+    def measured(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        mem["at_entry_gb"] = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        out = blend(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        mem["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        mem["added_gb"] = mem["peak_gb"] - mem["at_entry_gb"]
+        return out
+
+    out = {}
+    w, h = MAIN_OUT
+    cls._blend = measured
+    try:
+        for name in OTHER_BLENDS:
+            path = os.path.join(tmp, f"blend_{name}.tiff")
+            cfg = pipeline.PipelineConfig(blend_method=name, enable_qa=False)
+            t0 = time.time()
+            res = cls(cfg).process(image, path)
+            elapsed = time.time() - t0
+            if not res.success:
+                fail(f"other_blends: {name}: {res.error_message}")
+            got = read_tiff(path)
+            if got.shape != (h, w, 3) or np.abs(got.mean(axis=(0, 1)) -
+                                                image.mean(axis=(0, 1))).max() > 10.0:
+                fail(f"other_blends: {name}: output {got.shape}, means "
+                     f"{got.mean(axis=(0, 1))}")
+            os.remove(path)
+            out[name] = {"blending_s": res.stage_times["blending"], "elapsed_s": elapsed,
+                         "mp_per_s": w * h / 1e6 / elapsed, "stage_times": res.stage_times,
+                         "blend_memory": dict(mem)}
+    finally:
+        cls._blend = blend
+    return out
+
+
+def blend_reference(torch, tmp: str) -> dict:
+    """Card against CPU on small inputs, no weights (untrained nets, 8 IBP
+    steps): each blend, and multi_band with the three post-passes, TIFFs
+    within 1 LSB; then seam detection and repair of a scene with medium
+    and high seams on both, the same seams and canvases within 1e-3."""
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.ops.seam import detect_seams, repair_seams
+    from srs_tpu_torch.ops.tiles import extract_tiles, merge_tiles
+    from srs_tpu_torch.ops.weights import layout_weights
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+    from srs_tpu_torch.tiling.geometry import compute_layout
+
+    image = synthetic_image(72, 96, seed=5)
+    runs = {b: dict(blend_method=b) for b in ALL_BLENDS}
+    runs["multi_band+post"] = dict(blend_method="multi_band", enable_seam_repair=True,
+                                   enable_color_correction=True, content_aware=True)
+    out = {}
+    for name, flags in runs.items():
+        got = {}
+        for device in ("cuda", "cpu"):
+            # edsr_m in float32: the CPU side stays quick; untrained, the
+            # net is bicubic whatever its width
+            cfg = PipelineConfig(block_size=32, target_resolution="384x288", enable_qa=False,
+                                 quality_model="edsr_m", compute_dtype="float32",
+                                 device=device, **flags)
+            path = os.path.join(tmp, f"small_{name}_{device}.tiff")
+            res = SuperResolutionPipeline(cfg).process(image, path)
+            if not res.success:
+                fail(f"blend_reference: {name} on {device}: {res.error_message}")
+            got[device] = read_tiff(path).astype(np.int16)
+        diff = np.abs(got["cuda"] - got["cpu"])
+        if got["cuda"].shape != (288, 384, 3) or diff.max() > 1:
+            fail(f"blend_reference: card and CPU disagree on {name}: shape "
+                 f"{got['cuda'].shape}, max diff {diff.max()} LSB")
+        out[name] = {"max_lsb": int(diff.max()), "frac_differing": float((diff > 0).mean())}
+
+    # a 3x3 grid of 64-px tiles that disagree in their overlaps
+    lo = compute_layout(176, 176, 64, 0.3, step_multiple=8)
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0 : lo.padded_h, 0 : lo.padded_w].astype(np.float32)
+    scene = np.stack([128 + 70 * np.sin(xx / 11.0), 128 + 70 * np.cos(yy / 9.0),
+                      128 + 50 * np.sin((xx + yy) / 13.0)], -1).astype(np.float32)
+    tiles = extract_tiles(torch.from_numpy(scene), lo).clone()
+    for t in range(lo.num_tiles):
+        tiles[t] += torch.from_numpy(rng.normal(0, 4 + 12 * (t % 3), tiles[t].shape)).float()
+    canvas = merge_tiles(tiles, layout_weights(lo, "ramp"), lo)
+    found = {}
+    for device in ("cuda", "cpu"):
+        c, t = canvas.to(device), tiles.to(device)
+        seams = detect_seams(extract_tiles(c, lo), t, lo)
+        bad = [s for s in seams if s.severity != "low"]
+        found[device] = (seams, repair_seams(c, bad, t, lo).cpu())
+    (s_gpu, r_gpu), (s_cpu, r_cpu) = found["cuda"], found["cpu"]
+    same = [(a.x, a.y, a.width, a.height, a.severity) for a in s_gpu] == \
+        [(a.x, a.y, a.width, a.height, a.severity) for a in s_cpu]
+    err = float((r_gpu - r_cpu).abs().max()) if same else float("inf")
+    severities = [s.severity for s in s_cpu]
+    if not same or err > 1e-3 or "high" not in severities or "medium" not in severities:
+        fail(f"blend_reference: seam repair, card against CPU: same seams {same}, "
+             f"max abs err {err}, severities {sorted(set(severities))}")
+    out["seam_repair_scene"] = {"seams": len(s_cpu), "high": severities.count("high"),
+                                "medium": severities.count("medium"), "max_abs_err": err}
+    return out
 
 
 def profile_main_path(torch, K, pipe, image, tmp: str) -> dict:
@@ -788,8 +1110,19 @@ def main() -> int:
         emit("bench_path", t0, **bench)
 
         t0 = time.time()
+        cli = cli_path(torch, K, tmp, image)
+        emit("cli_path", t0, **cli)
+
+        t0 = time.time()
+        emit("other_blends", t0, **other_blends(torch, tmp, image))
+
+        t0 = time.time()
+        emit("blend_reference", t0, **blend_reference(torch, tmp))
+
+        t0 = time.time()
         held = {"main_path": main["held_against_plain"],
-                "bench_path": bench["held_against_plain"]}
+                "bench_path": bench["held_against_plain"],
+                "cli_path": cli["held_against_plain"]}
         shapes = time_kernel_shapes(torch, K, held)
         emit("kernel_shapes", t0, **shapes)
 
@@ -811,7 +1144,8 @@ def main() -> int:
             # the bench path is the system's main path (bench.py:69-83)
             "launches": bench["launches"][name],
             "launches_by_path": {"bench_path": bench["launches"][name],
-                                 "main_path": main["launches"][name]},
+                                 "main_path": main["launches"][name],
+                                 "cli_path": cli["launches"][name]},
             "max_abs_err": max(d["max_abs_err"],
                                *(h[name]["max_abs_err"] for h in held.values())),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],

@@ -1,0 +1,134 @@
+"""Command-line interface (port of the ``process`` subcommand of
+``srs_tpu/cli.py:17-64,203-253``).
+
+    python -m srs_tpu_torch process in.png out.tiff [--target 100MP] [...]
+
+It takes the reference's flags. Those the port serves build a
+``PipelineConfig``; ``--device`` (``cuda`` by default, ``cpu`` for the
+plain PyTorch versions) is the port's own. Flags whose feature is not
+ported exit with code 2 and say which ROADMAP item holds it. The other
+subcommands of the reference (bench, warmup, webui, train, generate,
+info) are not ported (ROADMAP Queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional
+
+# Flags of the reference whose feature the port has not yet: (the
+# attribute, the value that means "not asked for", what holds it).
+_UNPORTED_FLAGS = (
+    ("zssr_steps", 150, "--zssr-steps: the zssr provider (ROADMAP Queue 1, item 7)"),
+    ("mesh", None, "--mesh: the parallel/ mesh (ROADMAP Queue 1, item 8)"),
+    ("checkpoint", False, "--checkpoint: SR resume and the tile store (ROADMAP Queue 1, item 6)"),
+    ("self_ensemble", False,
+     "--self-ensemble: the dihedral self-ensemble (ROADMAP Queue 1, item 7)"),
+    ("prompt", None, "--prompt: FiLM cond_polish conditioning (ROADMAP Queue 1, item 7)"),
+    ("profile", None, "--profile: the device trace (ROADMAP Queue 1, item 8)"),
+)
+# Registry nets of the reference that the port has not yet.
+_UNPORTED_MODELS = ("rcan", "espcn")
+
+
+def _cmd_process(args: argparse.Namespace) -> int:
+    for attr, default, what in _UNPORTED_FLAGS:
+        if getattr(args, attr) != default:
+            print(f"NotImplementedError: {what} is not ported yet", file=sys.stderr)
+            return 2
+    if args.quality_model in _UNPORTED_MODELS:
+        print(f"NotImplementedError: --quality-model {args.quality_model}: the ESPCN and "
+              "RCAN nets are not ported yet (ROADMAP Queue 1, item 7)", file=sys.stderr)
+        return 2
+    from .pipeline import PipelineConfig, SuperResolutionPipeline
+
+    try:
+        cfg = PipelineConfig(
+            block_size=args.block_size,
+            overlap_ratio=args.overlap,
+            target_resolution=args.target,
+            provider=args.provider,
+            quality_model=args.quality_model,
+            blend_method=args.blend,
+            enable_qa=not args.no_qa,
+            ibp_steps=args.steps,
+            bit_depth=args.bit_depth,
+            enable_seam_repair=args.seam_repair,
+            enable_color_correction=args.color_correction,
+            content_aware=args.content_aware,
+            per_scale_selection=not args.pin_quality_model,
+            device=args.device,
+        )
+    except NotImplementedError as e:
+        print(f"NotImplementedError: {e}", file=sys.stderr)
+        return 2
+    result = SuperResolutionPipeline(cfg).process(args.input, args.output)
+    if result.success:
+        print(f"OK {result.output_path} ({result.processing_time:.1f}s, "
+              f"{result.total_blocks} tiles)")
+        if result.quality_score is not None:
+            print(f"quality score: {result.quality_score:.1f}/100")
+        for k, v in result.stage_times.items():
+            print(f"  {k}: {v:.2f}s")
+        return 0
+    print(f"FAILED: {result.error_message}", file=sys.stderr)
+    return 1
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="srs-tpu-torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pp = sub.add_parser("process", help="super-resolve an image")
+    pp.add_argument("input")
+    pp.add_argument("output")
+    pp.add_argument("--target", default="100MP", help="100MP|150MP|200MP|WxH")
+    pp.add_argument("--block-size", type=int, default=512)
+    pp.add_argument("--overlap", type=float, default=0.2)
+    pp.add_argument("--provider", default="quality",
+                    choices=["quality", "fast", "hybrid", "bicubic", "zssr", "fusion"],
+                    help="only quality is ported")
+    pp.add_argument("--blend", default="laplacian",
+                    choices=["laplacian", "multi_band", "weighted", "feather",
+                             "gradient_domain", "poisson"])
+    pp.add_argument("--quality-model", default="edsr_xl",
+                    choices=["edsr_m", "edsr_l", "edsr_xl", "edsr_l_robust", "rcan", "espcn"],
+                    help="registry net for the quality tier (the fallback when per-scale "
+                         "selection has no panel evidence)")
+    pp.add_argument("--pin-quality-model", action="store_true",
+                    help="disable per-scale panel-best selection and serve --quality-model "
+                         "for every ladder step")
+    pp.add_argument("--steps", type=int, default=8, help="back-projection steps")
+    pp.add_argument("--zssr-steps", type=int, default=150,
+                    help="self-supervised fine-tune steps for --provider zssr (not ported)")
+    pp.add_argument("--mesh", default=None, help="device mesh (not ported)")
+    pp.add_argument("--bit-depth", type=int, default=8, choices=[8, 16],
+                    help="output bit depth (16 requires TIFF output)")
+    pp.add_argument("--seam-repair", action="store_true",
+                    help="post-blend seam detection and repair pass")
+    pp.add_argument("--color-correction", action="store_true",
+                    help="histogram-match output colors to the source")
+    pp.add_argument("--checkpoint", action="store_true",
+                    help="persist upscaled tiles for kill-resume (not ported)")
+    pp.add_argument("--content-aware", action="store_true",
+                    help="seam placement avoids faces/text/salient regions")
+    pp.add_argument("--self-ensemble", action="store_true",
+                    help="dihedral self-ensemble (not ported)")
+    pp.add_argument("--prompt", default=None, help="prompt conditioning (not ported)")
+    pp.add_argument("--no-qa", action="store_true")
+    pp.add_argument("--profile", default=None, metavar="DIR", help="device trace (not ported)")
+    pp.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda (default; needs a card) or cpu (the plain PyTorch versions)")
+    pp.set_defaults(fn=_cmd_process)
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,4 +1,5 @@
-"""EDSR quality net (port of ``srs_tpu/models/nets.py:37-94,150-214``).
+"""EDSR quality net and back-projection (port of
+``srs_tpu/models/nets.py:37-94,150-214,295-337``).
 
 A bicubic-residual EDSR: the output is bicubic upsampling plus the net's
 residual, so a zero tail reproduces bicubic exactly. Inputs and outputs
@@ -25,9 +26,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.resize import resize_bicubic_up
+from ..ops.resize import resize_area_int, resize_bicubic, resize_bicubic_up
 
-__all__ = ["EDSR", "depth_to_space", "shuffle_channel_order", "_shuffle_factors"]
+__all__ = ["EDSR", "back_project", "depth_to_space", "shuffle_channel_order",
+           "_shuffle_factors"]
 
 
 def depth_to_space(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -118,3 +120,32 @@ class EDSR(nn.Module):
         if self.factors:
             r = F.pixel_shuffle(r, self.factors[-1])
         return base + r.permute(0, 2, 3, 1).float() * 255.0
+
+
+def back_project(
+    sr: torch.Tensor,
+    lr: torch.Tensor,
+    scale: int,
+    steps: int = 10,
+    strength: float = 0.5,
+    degradation: str = "bicubic",
+) -> torch.Tensor:
+    """Iterative back-projection (Irani & Peleg 1991) on NHWC float32:
+    ``steps`` times ``sr <- sr + strength * Up(lr - Down(sr))``, with Up
+    the integer-factor bicubic. ``degradation`` is the Down operator the
+    fixed point enforces: "bicubic" (cv2 INTER_CUBIC, no antialiasing) or
+    "area" (the ``scale`` x ``scale`` box mean, cv2 INTER_AREA)."""
+    lh, lw = lr.shape[-3], lr.shape[-2]
+    if degradation == "area":
+        def down(u):
+            return resize_area_int(u, scale)
+    elif degradation == "bicubic":
+        def down(u):
+            return resize_bicubic(u, lh, lw)
+    else:
+        raise ValueError(f"unknown IBP degradation {degradation!r}")
+    lr = lr.float()
+    u = sr.float()
+    for _ in range(steps):
+        u = u + strength * resize_bicubic_up(lr - down(u), scale)
+    return u

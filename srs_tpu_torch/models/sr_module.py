@@ -4,9 +4,9 @@ Ported: ``scale_ladder`` (reference 124-174), per-scale selection
 (``select_quality_model``, ``_resolve``, ``resolve_ladder_models``,
 207-245), ``route_for`` (315-327), the net cache ``_net`` and
 ``trained_scales`` (653-665), and the ``quality``, ``bicubic`` and
-``shrink`` branches of ``upscale_tiles`` (672-751). Other providers, the
-self-ensemble and conditioning are not ported yet; back-projection (IBP)
-for untrained nets raises ``NotImplementedError``.
+``shrink`` branches of ``upscale_tiles`` (672-751), with back-projection
+(IBP) for untrained nets. Other providers, the self-ensemble and
+conditioning are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 from ..config import ModelConfig
 from ..ops.resize import resize_bicubic_up
 from ..utils.device import resolve_device
+from .nets import back_project
 from .registry import build_model
 from .routing import route_quality_model
 from .selection import panel_best_model
@@ -156,8 +157,8 @@ class SuperResolutionModule:
         """[N,B,B,C] float32 [0,255] batch -> [N,B*s,B*s,C].
 
         ``quality``: the net (clipped to [0,255]); ``steps`` back-projection
-        steps apply to untrained nets only, as in the reference, and are
-        not ported yet. ``bicubic``: the bicubic upscale, unclipped.
+        steps apply to untrained nets only, as in the reference.
+        ``bicubic``: the bicubic upscale, unclipped.
         ``shrink``: ``clip(bic + alpha * (net - bic))`` with the probe's
         per-job ``alpha`` (reference sr_module.py:686-702)."""
         if provider == "bicubic":
@@ -168,9 +169,7 @@ class SuperResolutionModule:
             return (bic + float(np.float32(alpha)) * (net_out - bic)).clamp_(0, 255)
         if provider != "quality":
             raise NotImplementedError(f"provider {provider!r} is not ported yet")
+        out = self._net(scale, model)(tiles)
         if steps > 0 and not self._net_trained(scale, model):
-            raise NotImplementedError(
-                "back_project (IBP) for untrained nets is queued (ROADMAP Queue 1): "
-                "hand the net's weights in, or set ibp_steps=0"
-            )
-        return self._net(scale, model)(tiles).clamp_(0, 255)
+            out = back_project(out, tiles, scale, steps=steps)
+        return out.clamp_(0, 255)

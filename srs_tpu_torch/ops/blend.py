@@ -1,35 +1,58 @@
-"""Laplacian canvas-pyramid blend and banded finalize (port of the profile
-path of ``srs_tpu/ops/blend.py``).
+"""Tile fusion: the Laplacian canvas-pyramid blend, weighted and
+gradient-domain fusion, seamless cloning and the banded finalize (port of
+``srs_tpu/ops/blend.py``).
 
 Ported: ``laplacian_fusion_tiles`` (reference 273-344) with its level
-clamp, ``_v2``, ``_build_gauss``, ``_accumulate_level_sep``,
-``_collapse_step`` and ``_canvas_pyramid_blend_profiles`` (143-265), and
-``_finalize_band`` / ``blend_finalize_banded`` (538-692), with
-``as_device``.
+clamp, its separable-profile path (``_v2``, ``_build_gauss``,
+``_accumulate_level_sep`` (``_accumulate_level`` here, for both weight
+kinds), ``_collapse_step``,
+``_canvas_pyramid_blend_profiles``, 143-265), its dense-weight path
+(``_canvas_pyramid_blend``, 78-113; the reference's staged variant,
+148-176, works around a TPU compiler limit and computes the same) and its
+``mode="reference"`` (``_weighted_collapse``, 55-63);
+``weighted_fusion_tiles`` (347-366); the spectral Poisson solver
+(``_dct2``, ``_idct2``, ``poisson_solve_neumann``, 369-439, on
+``torch.fft``); ``gradient_domain_fusion_tiles`` (442-476);
+``seamless_clone`` (479-531); and ``_finalize_band`` /
+``blend_finalize_banded`` (538-692), with ``as_device``.
 
 The math is the reference's; the execution shape is the port's own. The
 reference stages per-level programs, unrolls loops and caps chunks to fit
-the TPU compiler; here each step is an eager op on the card. Every pyrDown
-is kernel K1 and every pyrUp kernel K2 (``ops/cuda/pyramid.py``). The
-vertical resize taps and the W resize are plain float32 matrix products
-(``torch.matmul`` with TF32 off, as the reference's
-``Precision.HIGHEST``).
+the TPU compiler; here each step is an eager op on the card. Both
+canvas-pyramid paths keep the tiles' Gaussian pyramid and form each
+Laplacian level as it is accumulated. Every pyrDown is kernel K1 and
+every pyrUp kernel K2 (``ops/cuda/pyramid.py``). The vertical resize taps
+and the W resize are plain float32 matrix products (``torch.matmul`` with
+TF32 off, as the reference's ``Precision.HIGHEST``).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..tiling.geometry import TileLayout
-from .pyramid import build_gaussian_pyramid, pyr_up
+from .pyramid import (
+    build_gaussian_pyramid,
+    build_laplacian_pyramid,
+    collapse_laplacian_pyramid,
+    pyr_up,
+)
 from .resize import _axis_plan, _band_matrix, _down_axis_int, _resize_w_blocked, _w_block_plan
+from .tiles import merge_tiles
 from .weights import profile_pyramid
 
-__all__ = ["laplacian_fusion_tiles", "blend_finalize_banded"]
+__all__ = [
+    "laplacian_fusion_tiles",
+    "blend_finalize_banded",
+    "weighted_fusion_tiles",
+    "gradient_domain_fusion_tiles",
+    "poisson_solve_neumann",
+    "seamless_clone",
+]
 
 
 @contextlib.contextmanager
@@ -59,24 +82,23 @@ def _clamp(start: int, size: int, extent: int) -> int:
     return min(max(int(start), 0), extent - size)
 
 
-def _accumulate_level_sep(
+def _accumulate_level(
     g_i: torch.Tensor,
     g_next: Optional[torch.Tensor],
-    wy: torch.Tensor,
-    wx: torch.Tensor,
+    weight: Callable[[int], torch.Tensor],
     pos: np.ndarray,
     ch: int,
     cw: int,
 ) -> torch.Tensor:
     """One canvas-pyramid level: Laplacian G_i - pyrUp(G_{i+1}) formed here
-    (``g_next`` None at the coarsest level), weighted by outer(wy_t, wx_t),
-    accumulated on the canvas and normalized."""
+    (``g_next`` None at the coarsest level), tile t weighted by
+    ``weight(t)`` ([h, w, 1]), accumulated on the canvas and normalized."""
     n, tb_h, tb_w, c = g_i.shape
     lap = g_i if g_next is None else g_i - pyr_up(g_next, (tb_h, tb_w))
     num = torch.zeros((ch, cw, c), dtype=torch.float32, device=g_i.device)
     den = torch.zeros((ch, cw, 1), dtype=torch.float32, device=g_i.device)
     for t in range(n):
-        w = wy[t][:, None, None] * wx[t][None, :, None]  # [h, w, 1]
+        w = weight(t)
         p0 = _clamp(pos[t, 0], tb_h, ch)
         p1 = _clamp(pos[t, 1], tb_w, cw)
         num[p0 : p0 + tb_h, p1 : p1 + tb_w] += lap[t] * w
@@ -88,31 +110,28 @@ def _collapse_step(lap_i: torch.Tensor, coarser: torch.Tensor) -> torch.Tensor:
     return lap_i + pyr_up(coarser, (lap_i.shape[0], lap_i.shape[1]))
 
 
-def _canvas_pyramid_blend_profiles(
-    tiles: torch.Tensor,
-    wy: np.ndarray,
-    wx: np.ndarray,
+def _canvas_pyramid(
+    gauss: list,
+    level_weight: Callable[[int, int], torch.Tensor],
     positions: np.ndarray,
-    levels: int,
     padded_h: int,
     padded_w: int,
     collapse_last: bool = True,
 ):
-    """Canvas-pyramid blend with separable weights. Returns the canvas, or
-    ``(lap0, coarse)`` when ``collapse_last`` is False and there are two or
-    more levels (the caller finishes level 0 banded)."""
-    gauss = build_gaussian_pyramid(tiles.float(), levels)
+    """Burt-Adelson canvas pyramid from the tiles' Gaussian pyramid
+    ``gauss`` (consumed): each tile's Laplacian levels, weighted by
+    ``level_weight(level, tile)`` ([h, w, 1]), accumulated into canvas
+    levels, normalized per level and collapsed. Returns the canvas, or
+    ``(lap0, coarse)`` when ``collapse_last`` is False and there are two
+    or more levels (the caller finishes level 0 banded)."""
     n_lv = len(gauss)
-    py = profile_pyramid(wy, n_lv)
-    px = profile_pyramid(wx, n_lv)
-    dev = tiles.device
     canvas_lap = []
     ch, cw = padded_h, padded_w
     for i in range(n_lv):
         is_last = i == n_lv - 1
-        canvas_lap.append(_accumulate_level_sep(
+        canvas_lap.append(_accumulate_level(
             gauss[i], None if is_last else gauss[i + 1],
-            torch.from_numpy(py[i]).to(dev), torch.from_numpy(px[i]).to(dev),
+            lambda t, i=i: level_weight(i, t),
             np.asarray(positions) // (2**i), ch, cw,
         ))
         gauss[i] = None  # consumed: frees the level before the next one
@@ -127,39 +146,251 @@ def _canvas_pyramid_blend_profiles(
     return x
 
 
+def _canvas_pyramid_blend_profiles(tiles, wy, wx, positions, levels, padded_h, padded_w,
+                                   collapse_last=True):
+    """Separable weights: level i of tile t weighs outer(py_i[t], px_i[t])
+    from the 1-D pyramids of the profiles (exact: the binomial kernel is
+    separable), never a dense [N, B, B] array."""
+    gauss = build_gaussian_pyramid(tiles.float(), levels)
+    dev = tiles.device
+    py = [torch.from_numpy(p).to(dev) for p in profile_pyramid(wy, len(gauss))]
+    px = [torch.from_numpy(p).to(dev) for p in profile_pyramid(wx, len(gauss))]
+    return _canvas_pyramid(
+        gauss, lambda i, t: py[i][t][:, None, None] * px[i][t][None, :, None],
+        positions, padded_h, padded_w, collapse_last)
+
+
+def _canvas_pyramid_blend(tiles, weights, positions, levels, padded_h, padded_w):
+    """Dense weights [N, B, B]: their Gaussian pyramid (K1 at C = 1) weighs
+    each level."""
+    gauss = build_gaussian_pyramid(tiles.float(), levels)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=tiles.device)
+    wpyr = build_gaussian_pyramid(w[..., None], levels)
+    return _canvas_pyramid(gauss, lambda i, t: wpyr[i][t], positions, padded_h, padded_w)
+
+
+def _weighted_collapse(tiles: torch.Tensor, weights: torch.Tensor, levels: int) -> torch.Tensor:
+    """collapse(L_i(tile) * G_i(w)) for a [N, B, B, C] batch."""
+    lap = build_laplacian_pyramid(tiles.float(), levels)
+    wpyr = build_gaussian_pyramid(weights[..., None].float(), levels)
+    return collapse_laplacian_pyramid([lv * wv for lv, wv in zip(lap, wpyr)])
+
+
 def laplacian_fusion_tiles(
     tiles: torch.Tensor,
     layout: TileLayout,
-    weight_profiles: Tuple[np.ndarray, np.ndarray],
+    weight_profiles: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     levels: int = 6,
     clip_range: Optional[Tuple[float, float]] = (0.0, 255.0),
     collapse_last: bool = True,
+    weights=None,
+    mode: str = "canvas",
 ):
-    """Burt-Adelson canvas-pyramid blend of a [N, B, B, C] tile batch at
-    ``layout``'s positions with separable weights ``weight_profiles=(wy,
-    wx)`` ([N, B] each; the reference's dense-weight and per-tile modes are
-    not ported).
+    """Burt-Adelson blend of a [N, B, B, C] tile batch at ``layout``'s
+    positions, weighted by separable ``weight_profiles=(wy, wx)`` ([N, B]
+    each) or by dense ``weights`` ([N, B, B]; ignored when profiles are
+    given).
 
-    Levels are clamped so tile dyadic grids align with the canvas grid and
-    the coarsest level's footprint stays inside the overlap band. With
-    ``collapse_last=False`` returns ``(lap0, coarse)`` for
+    ``mode="canvas"``: weighted Laplacian levels accumulate into canvas
+    levels, normalized per level, collapsed once. Levels are clamped so
+    tile dyadic grids align with the canvas grid and the coarsest level's
+    footprint stays inside the overlap band. With ``collapse_last=False``
+    (profiles only) returns ``(lap0, coarse)`` for
     :func:`blend_finalize_banded`, or the canvas when one level is left,
     unclipped either way.
+
+    ``mode="reference"`` (dense weights): each tile's own
+    collapse(L_i(tile) * G_i(w)), merged on the canvas and normalized by
+    the level-0 weight sum, as the reference's blending module does.
     """
-    if layout.num_tiles > 1:
-        align = min(_v2(int(p)) for p in np.asarray(layout.positions).reshape(-1) if int(p) != 0)
-        overlap_cap = max(1, int(np.log2(max(layout.overlap, 4))) - 1)
-        levels = max(1, min(levels, align + 1, overlap_cap))
-    wy, wx = weight_profiles
-    canvas = _canvas_pyramid_blend_profiles(
-        tiles, wy, wx, layout.positions, levels, layout.padded_h, layout.padded_w,
-        collapse_last=collapse_last,
-    )
-    if not collapse_last:
-        return canvas  # (lap0, coarse), or the unclipped canvas at one level
+    if mode == "reference":
+        w = torch.as_tensor(weights, dtype=torch.float32, device=tiles.device)
+        weighted = _weighted_collapse(tiles, w, levels)
+        canvas = merge_tiles(weighted, w, layout, premultiplied=True)
+    else:
+        if layout.num_tiles > 1:
+            align = min(_v2(int(p)) for p in np.asarray(layout.positions).reshape(-1)
+                        if int(p) != 0)
+            overlap_cap = max(1, int(np.log2(max(layout.overlap, 4))) - 1)
+            levels = max(1, min(levels, align + 1, overlap_cap))
+        if weight_profiles is not None:
+            wy, wx = weight_profiles
+            canvas = _canvas_pyramid_blend_profiles(
+                tiles, wy, wx, layout.positions, levels, layout.padded_h, layout.padded_w,
+                collapse_last=collapse_last,
+            )
+            if not collapse_last:
+                return canvas  # (lap0, coarse), or the unclipped canvas at one level
+        else:
+            canvas = _canvas_pyramid_blend(tiles, weights, layout.positions, levels,
+                                           layout.padded_h, layout.padded_w)
     if clip_range is not None:
         canvas = torch.clamp(canvas, clip_range[0], clip_range[1])
     return canvas
+
+
+def weighted_fusion_tiles(
+    tiles: torch.Tensor,
+    weights,
+    layout: TileLayout,
+    clip_range: Optional[Tuple[float, float]] = None,
+) -> torch.Tensor:
+    """Weighted-average fusion (ramp weights) or feather blend (distance
+    weights): ``merge_tiles``, optionally clipped."""
+    canvas = merge_tiles(tiles, weights, layout)
+    if clip_range is not None:
+        canvas = torch.clamp(canvas, clip_range[0], clip_range[1])
+    return canvas
+
+
+# -- spectral Poisson solver -------------------------------------------------
+
+
+def _phase(n: int, sign: float, scale: float, axis: int, ndim: int, device) -> torch.Tensor:
+    """``scale * exp(sign * i * pi * k / (2n))`` shaped to broadcast along
+    ``axis`` (k = 0..n-1, float32 angles, complex64 values)."""
+    k = torch.arange(n, dtype=torch.float32, device=device)
+    shape = [1] * ndim
+    shape[axis] = n
+    return (scale * torch.polar(torch.ones_like(k), sign * np.float32(np.pi) * k
+                                / (2 * n))).reshape(shape)
+
+
+def _dct2(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Unnormalized DCT-II along ``axis`` through the FFT of the even-odd
+    reordering v = [x0, x2, ..., x3, x1]."""
+    n = x.shape[axis]
+    idx = torch.arange(n, device=x.device)
+    order = torch.cat([idx[::2], idx[1::2].flip(0)])
+    V = torch.fft.fft(x.index_select(axis, order), dim=axis)
+    return torch.real(V * _phase(n, -1.0, 2.0, axis, x.dim(), x.device))
+
+
+def _idct2(X: torch.Tensor, axis: int) -> torch.Tensor:
+    """Exact inverse of :func:`_dct2`: V[k] = (X[k] - i X[n-k]) / 2 *
+    e^{i pi k / 2n} (no imaginary part at k = 0), inverse FFT, then the
+    reordering undone."""
+    n = X.shape[axis]
+    rev = torch.cat([torch.zeros(1, dtype=torch.long, device=X.device),
+                     torch.arange(n - 1, 0, -1, device=X.device)])
+    shift = X.index_select(axis, rev)
+    shift.narrow(axis, 0, 1).zero_()
+    V = (X - 1j * shift) * _phase(n, 1.0, 0.5, axis, X.dim(), X.device)
+    v = torch.real(torch.fft.ifft(V, dim=axis))
+    h = (n + 1) // 2
+    out = torch.empty_like(v)
+    idx = torch.arange(n, device=X.device)
+    out.index_copy_(axis, idx[::2], v.narrow(axis, 0, h))
+    out.index_copy_(axis, idx[1::2].flip(0), v.narrow(axis, h, n - h))
+    return out
+
+
+def poisson_solve_neumann(div: torch.Tensor) -> torch.Tensor:
+    """Solve lap(u) = div with homogeneous Neumann borders on (H, W[, C]):
+    the 5-point Laplacian is diagonal in the DCT-II basis, with
+    eigenvalues 2 cos(pi k / n) - 2 per axis. The zero mode (the mean) is
+    set to 0. Channels are solved one after another, which bounds the
+    complex temporaries to one channel's."""
+    squeeze = div.dim() == 2
+    if squeeze:
+        div = div[..., None]
+    h, w = div.shape[0], div.shape[1]
+    dev = div.device
+    ky = 2.0 * torch.cos(np.float32(np.pi) * torch.arange(h, dtype=torch.float32, device=dev)
+                         / h) - 2.0
+    kx = 2.0 * torch.cos(np.float32(np.pi) * torch.arange(w, dtype=torch.float32, device=dev)
+                         / w) - 2.0
+    denom = ky[:, None] + kx[None, :]
+    denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+    out = torch.empty_like(div, dtype=torch.float32)
+    for c in range(div.shape[2]):
+        u = _dct2(_dct2(div[..., c].float(), 0), 1) / denom
+        u[0, 0] = 0.0
+        out[..., c] = _idct2(_idct2(u, 0), 1)
+    return out[..., 0] if squeeze else out
+
+
+def gradient_domain_fusion_tiles(
+    tiles: torch.Tensor,
+    weights,
+    layout: TileLayout,
+    clip_range: Optional[Tuple[float, float]] = (0.0, 255.0),
+) -> torch.Tensor:
+    """Gradient-domain fusion: the tiles' forward differences merged on the
+    canvas with ``weights``, their divergence integrated by the spectral
+    Poisson solve, and the result shifted to the merged tiles' mean."""
+    tiles = tiles.float()
+    gx = torch.diff(tiles, dim=2, append=tiles[:, :, -1:, :])
+    gy = torch.diff(tiles, dim=1, append=tiles[:, -1:, :, :])
+    gx_c = merge_tiles(gx, weights, layout)
+    del gx
+    gy_c = merge_tiles(gy, weights, layout)
+    del gy
+    base_mean = merge_tiles(tiles, weights, layout).mean(dim=(0, 1), keepdim=True)
+    # backward differences, summed in the reference's order
+    div = gx_c.clone()
+    div[:, 1:] -= gx_c[:, :-1]
+    div += gy_c
+    div[1:] -= gy_c[:-1]
+    del gx_c, gy_c
+    u = poisson_solve_neumann(div)
+    del div
+    u = u - u.mean(dim=(0, 1), keepdim=True) + base_mean
+    if clip_range is not None:
+        u = torch.clamp(u, clip_range[0], clip_range[1])
+    return u
+
+
+# -- seamless clone ------------------------------------------------------------
+
+
+def seamless_clone(
+    dst: torch.Tensor,
+    src: torch.Tensor,
+    mask: torch.Tensor,
+    mode: str = "normal",
+    iters: int = 400,
+) -> torch.Tensor:
+    """cv2.seamlessClone equivalent on aligned (..., H, W, C) arrays: Jacobi
+    relaxation of lap(u) = div(g) inside ``mask`` ((H, W), or any shape
+    that broadcasts to (..., H, W, 1)) with ``dst`` held outside it. g is the source's
+    gradient field (``mode="normal"``), the larger of the source's and the
+    destination's per component (``"mixed"``), or the source's gray
+    gradients (``"monochrome"``). Neighbours wrap around the borders, as
+    the reference's ``jnp.roll`` does. Leading dimensions are independent
+    problems."""
+    dst = dst.float()
+    src = src.float()
+    m = (mask > 0).float()
+    if m.dim() == 2:
+        m = m[..., None]
+    ay, ax = dst.dim() - 3, dst.dim() - 2
+
+    def grads(img):
+        gx = torch.diff(img, dim=ax, append=img.narrow(ax, img.shape[ax] - 1, 1))
+        gy = torch.diff(img, dim=ay, append=img.narrow(ay, img.shape[ay] - 1, 1))
+        return gx, gy
+
+    if mode == "monochrome":
+        gray = (0.299 * src[..., 0] + 0.587 * src[..., 1] + 0.114 * src[..., 2])[..., None]
+        sx, sy = grads(gray.expand_as(src))
+    else:
+        sx, sy = grads(src)
+    if mode == "mixed":
+        dx, dy = grads(dst)
+        sx = torch.where(dx.abs() > sx.abs(), dx, sx)
+        sy = torch.where(dy.abs() > sy.abs(), dy, sy)
+    div = sx.clone()
+    div.narrow(ax, 1, div.shape[ax] - 1).sub_(sx.narrow(ax, 0, sx.shape[ax] - 1))
+    div += sy
+    div.narrow(ay, 1, div.shape[ay] - 1).sub_(sy.narrow(ay, 0, sy.shape[ay] - 1))
+    keep = dst * (1 - m)
+    u = keep + src * m  # warm start
+    for _ in range(iters):
+        nb = (torch.roll(u, 1, ay) + torch.roll(u, -1, ay)
+              + torch.roll(u, 1, ax) + torch.roll(u, -1, ax))
+        u = keep + (nb - div) * 0.25 * m
+    return u
 
 
 def _quantize(out: torch.Tensor, to_uint8) -> torch.Tensor:

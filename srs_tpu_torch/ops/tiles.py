@@ -1,4 +1,5 @@
-"""Mirror padding and tile extraction (port of ``srs_tpu/ops/tiles.py:31-82``).
+"""Mirror padding, tile extraction and the weighted merge (port of
+``srs_tpu/ops/tiles.py``).
 
 Mode names follow the reference's ``PaddingMode``: "mirror" is
 BORDER_REFLECT_101 (edge pixel not repeated), "reflect" is BORDER_REFLECT
@@ -14,7 +15,7 @@ import torch
 
 from ..tiling.geometry import TileLayout
 
-__all__ = ["pad_image", "extract_tiles"]
+__all__ = ["pad_image", "unpad_image", "extract_tiles", "merge_tiles"]
 
 _NP_MODES = {"mirror": "reflect", "reflect": "symmetric", "replicate": "edge"}
 
@@ -59,3 +60,36 @@ def extract_tiles(
     return torch.stack(
         [padded[int(y) : int(y) + b, int(x) : int(x) + b] for y, x in positions]
     )
+
+
+def unpad_image(canvas: torch.Tensor, layout: TileLayout) -> torch.Tensor:
+    """Crop a padded-extent canvas back to the true image size."""
+    return canvas[: layout.image_h, : layout.image_w]
+
+
+def merge_tiles(
+    tiles: torch.Tensor,
+    weights,
+    layout: TileLayout,
+    positions: Optional[np.ndarray] = None,
+    premultiplied: bool = False,
+) -> torch.Tensor:
+    """``sum(tile * w) / max(sum(w), 1e-8)`` over the padded canvas, in
+    float32 (tiles [N, B, B, C], weights [N, B, B]). With
+    ``premultiplied`` the tiles already carry their weights and only the
+    denominator uses ``weights``. Crop with :func:`unpad_image`."""
+    if positions is None:
+        positions = layout.positions
+    n, b, _, c = tiles.shape
+    w = torch.as_tensor(weights, dtype=torch.float32, device=tiles.device)
+    canvas = torch.zeros((layout.padded_h, layout.padded_w, c), dtype=torch.float32,
+                         device=tiles.device)
+    wsum = torch.zeros((layout.padded_h, layout.padded_w, 1), dtype=torch.float32,
+                       device=tiles.device)
+    for t in range(n):
+        y, x = int(positions[t][0]), int(positions[t][1])
+        w3 = w[t][..., None]
+        tile = tiles[t].float()
+        canvas[y : y + b, x : x + b] += tile if premultiplied else tile * w3
+        wsum[y : y + b, x : x + b] += w3
+    return canvas / torch.clamp(wsum, min=1e-8)

@@ -10,16 +10,21 @@ Stages, as the reference runs them for provider ``quality``
    cut one [N, B, B, 3] batch;
 2. super-resolution: the ladder (e.g. [3, 3] for 720p -> 100MP) over the
    batch, in chunks sized for the card's memory;
-3. blending: canvas-pyramid Laplacian blend with ramp profiles, level-0
-   collapse deferred;
+3. blending: by ``blend_method``: the canvas-pyramid Laplacian blend with
+   ramp profiles (level-0 collapse deferred unless a post-pass needs the
+   canvas), the same with dense distance weights (``multi_band``),
+   weighted or feather averaging, or gradient-domain fusion; seams may
+   follow the content (``content_aware``); then the optional seam repair
+   and colour correction on the collapsed canvas;
 4. quality assessment (``enable_qa``): the save bands are computed first,
    then an input-size proxy of the output is finalized on the device and
    scored against the input (PSNR, SSIM, MS-SSIM, LPIPS, downsample
    comparison) and on its own (NIQE, BRISQUE, ...);
-5. save: the bands stream into the native TIFF writer (with QA off the
-   banded finalize runs here); with QA on, crops of the streamed bands get
-   a full-resolution no-reference panel and the report is written beside
-   the output as ``<out>_qa_report.json``.
+5. save: TIFF bands stream into the native writer (with QA off the
+   banded finalize runs here); other formats go through ``save_image``
+   (PNG, or JPEG where PIL is installed); with QA on, crops of the output
+   get a full-resolution no-reference panel and the report is written
+   beside the output as ``<out>_qa_report.json``.
 
 Routing and the probe are best-effort, as in the reference: an exception
 there keeps the configured net and provider, and its text is recorded in
@@ -45,15 +50,25 @@ import numpy as np
 import torch
 
 from .config import RESOLUTION_PRESETS, ModelConfig, QualityAssessmentConfig
-from .io.image import load_image
+from .io.image import load_image, save_image
 from .models import routing
 from .models.lpips import LPIPSMetric
 from .models.sr_module import SuperResolutionModule, scale_ladder
-from .ops.blend import blend_finalize_banded, laplacian_fusion_tiles
-from .ops.weights import layout_weight_profiles
+from .ops.blend import (
+    blend_finalize_banded,
+    gradient_domain_fusion_tiles,
+    laplacian_fusion_tiles,
+    weighted_fusion_tiles,
+)
+from .ops.color import color_correction
+from .ops.seam import detect_seams, repair_seams
+from .ops.tiles import extract_tiles
+from .ops.weights import layout_weight_profiles, layout_weights
 from .qa import noref
 from .qa.module import QualityAssessmentModule
 from .qa.niqe import brisque_scores, niqe_scores
+from .tiling.content import ContentAnalyzer
+from .tiling.content_layout import content_aware_weight_profiles, content_aware_weights
 from .tiling.tiling import TilingModule
 from .utils.device import resolve_device
 
@@ -70,7 +85,8 @@ _CHUNK_BYTES = 40e9
 # values it does serve.
 _NOT_PORTED = {
     "provider": ("quality",),
-    "blend_method": ("laplacian",),
+    "blend_method": ("laplacian", "multi_band", "weighted", "weighted_average", "feather",
+                     "gradient", "gradient_domain", "poisson"),
     "sr_gain_route": ("shrink", "bicubic"),  # zssr needs per-image training
 }
 
@@ -107,7 +123,11 @@ class PipelineConfig:
     # Directory whose EVAL.json selection reads before the packaged one.
     checkpoint_dir: Optional[str] = None
     ibp_steps: int = 8  # back-projection steps; only untrained nets use them
-    bit_depth: int = 8  # 8 or 16
+    content_aware: bool = False  # seams avoid faces, text and salient regions
+    bit_depth: int = 8  # 8 or 16 (16-bit needs a TIFF output)
+    enable_seam_repair: bool = False  # post-blend seam detection and repair
+    enable_color_correction: bool = False  # histogram-match the output to the input
+    seam_threshold: float = 0.95
     compute_dtype: str = "bfloat16"
     params_dtype: str = "float32"
     device: str = "cuda"
@@ -298,15 +318,92 @@ class SuperResolutionPipeline:
             outs.append(cur)
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
-    def _blend(self, up_tiles: torch.Tensor, out_layout):
-        """Laplacian canvas blend; returns (lap0, coarse) for the banded
-        finalize, or the finished canvas when there is one level."""
-        return laplacian_fusion_tiles(
-            up_tiles, out_layout, layout_weight_profiles(out_layout),
-            levels=self.config.num_pyramid_levels,
-            clip_range=None,  # the banded save clips and quantizes
-            collapse_last=False,
-        )
+    def _zone(self, image: np.ndarray, out_layout, net_scale: int) -> np.ndarray:
+        """The input's forbidden zone, repeated to the output scale and cut
+        or zero-padded to the output canvas (reference pipeline.py:635-640)."""
+        zone, boxes = ContentAnalyzer(device=self.device).forbidden_zone_map(image)
+        self.last_run_info["content"] = {**boxes, "forbidden_share": float(zone.mean())}
+        zone_up = np.repeat(np.repeat(zone, net_scale, axis=0), net_scale, axis=1)
+        pad_h = out_layout.padded_h - zone_up.shape[0]
+        pad_w = out_layout.padded_w - zone_up.shape[1]
+        zone_up = np.pad(zone_up, ((0, max(0, pad_h)), (0, max(0, pad_w))))
+        return zone_up[: out_layout.padded_h, : out_layout.padded_w]
+
+    def _content_aware(self, build, out_layout, image, net_scale, fallback: str):
+        """``build(layout, zone)`` when content-aware seams are on; None when
+        they are off or the analysis fails (best-effort, as in the
+        reference: the error text goes to ``last_run_info["content"]``)."""
+        if not self.config.content_aware or image is None:
+            return None
+        try:
+            return build(out_layout, self._zone(image, out_layout, net_scale))
+        except Exception as e:  # noqa: BLE001 - the reference falls back
+            logger.warning("content-aware weighting failed; using %s: %s", fallback, e)
+            self.last_run_info.setdefault("content", {})["error"] = f"{type(e).__name__}: {e}"
+            return None
+
+    def _weight_profiles(self, out_layout, image: Optional[np.ndarray], net_scale: int):
+        """Separable (wy, wx) blend profiles: content-aware when enabled,
+        ramp otherwise (reference pipeline.py:625-644)."""
+        profiles = self._content_aware(content_aware_weight_profiles, out_layout, image,
+                                       net_scale, "ramp")
+        return profiles if profiles is not None else layout_weight_profiles(out_layout)
+
+    def _blend_weights(self, out_layout, kind: str, image: Optional[np.ndarray],
+                       net_scale: int, weight_type: str = "cosine") -> np.ndarray:
+        """Dense [N, B, B] weights: content-aware when enabled, else
+        ``kind`` (reference pipeline.py:646-664)."""
+        weights = self._content_aware(content_aware_weights, out_layout, image, net_scale,
+                                      kind)
+        if weights is not None:
+            return weights
+        if kind == "distance":
+            return layout_weights(out_layout, kind="distance", weight_type=weight_type)
+        return layout_weights(out_layout, kind="ramp")
+
+    def _blend(self, up_tiles: torch.Tensor, out_layout,
+               image: Optional[np.ndarray] = None, net_scale: int = 1):
+        """The configured blend (reference pipeline.py:666-717). The
+        Laplacian blend returns (lap0, coarse) for the banded finalize
+        unless a post-pass needs the collapsed canvas; every other path
+        returns the canvas."""
+        cfg = self.config
+        method = cfg.blend_method
+        if method == "laplacian":
+            defer = not (cfg.enable_seam_repair or cfg.enable_color_correction)
+            return laplacian_fusion_tiles(
+                up_tiles, out_layout, self._weight_profiles(out_layout, image, net_scale),
+                levels=cfg.num_pyramid_levels,
+                clip_range=None,  # the banded save clips and quantizes
+                collapse_last=not defer,
+            )
+        if method == "multi_band":
+            weights = self._blend_weights(out_layout, "distance", image, net_scale, "sigmoid")
+            return laplacian_fusion_tiles(up_tiles, out_layout, weights=weights,
+                                          levels=cfg.num_pyramid_levels)
+        if method in ("weighted", "weighted_average", "feather"):
+            kind = "ramp" if method != "feather" else "distance"
+            return weighted_fusion_tiles(
+                up_tiles, self._blend_weights(out_layout, kind, image, net_scale), out_layout)
+        return gradient_domain_fusion_tiles(
+            up_tiles, self._blend_weights(out_layout, "ramp", image, net_scale), out_layout)
+
+    def _repair(self, canvas: torch.Tensor, up_tiles: torch.Tensor, out_layout) -> torch.Tensor:
+        """Seam detection on the canvas cut back into tiles against the
+        upscaled tiles, and repair of the medium and high ones (reference
+        pipeline.py:1189-1205). Counts and seconds go to
+        ``last_run_info["seam_repair"]``."""
+        stats: Dict[str, Any] = {}
+        seams = detect_seams(extract_tiles(canvas, out_layout), up_tiles, out_layout,
+                             threshold=self.config.seam_threshold, stats=stats)
+        severity = [s.severity for s in seams]
+        stats.update(seams=len(seams), **{k: severity.count(k) for k in ("high", "medium", "low")})
+        bad = [s for s in seams if s.severity != "low"]
+        if bad:
+            logger.info("repairing %d seams", len(bad))
+            canvas = repair_seams(canvas, bad, up_tiles, out_layout, stats=stats)
+        self.last_run_info["seam_repair"] = stats
+        return canvas
 
     @staticmethod
     def _sample_fullres_crops(band: np.ndarray, row0: int, total_h: int,
@@ -361,8 +458,9 @@ class SuperResolutionPipeline:
         output_path: str,
     ) -> PipelineResult:
         """Super-resolve one image (a path or an (H, W, 3) array in
-        [0, 255]) to ``target_resolution`` and write ``output_path``
-        (.tif/.tiff), plus ``<out>_qa_report.json`` with QA on."""
+        [0, 255]) to ``target_resolution`` and write ``output_path`` (TIFF,
+        PNG, or JPEG where PIL is installed), plus ``<out>_qa_report.json``
+        with QA on."""
         start = time.time()
         stage_times: Dict[str, float] = {}
         try:
@@ -388,9 +486,31 @@ class SuperResolutionPipeline:
             self._sync()
         stage_times[name] = time.time() - t0
 
+    def _write_tiff(self, path: str, bands, th: int, tw: int, split: Dict[str, float],
+                    crops: Optional[List[np.ndarray]]) -> None:
+        """Stream the bands into the native TIFF writer; ``crops``, when
+        given, collects the QA panel's crops on the way."""
+        from .io.native import TiffStreamWriter
+
+        # Deflate is pure loss on a single-core host.
+        writer = TiffStreamWriter(path, th, tw, bit_depth=self.config.bit_depth,
+                                  compress=(os.cpu_count() or 1) > 1)
+        try:
+            row0 = 0
+            for band in _timed(bands, split, "fetch"):
+                ts = time.time()
+                writer.write(band)
+                split["write"] += time.time() - ts
+                if crops is not None:
+                    self._sample_fullres_crops(band, row0, th, crops)
+                row0 += band.shape[0]
+        finally:
+            ts = time.time()
+            writer.close()  # joins the deflate threads and writes the file
+            split["close"] = time.time() - ts
+
     def _process(self, input_path, output_path, start, stage_times) -> PipelineResult:
-        if not output_path.lower().endswith((".tiff", ".tif")):
-            raise NotImplementedError("only TIFF output is ported (streamed native writer)")
+        cfg = self.config
         with self._stage("tiling", stage_times):
             image = (
                 load_image(input_path) if isinstance(input_path, str)
@@ -429,8 +549,14 @@ class SuperResolutionPipeline:
 
         with self._stage("blending", stage_times):
             out_layout = layout.scaled(net_scale)
-            canvas = self._blend(up_tiles, out_layout)
+            # The blend leaves up_tiles as they are: seam repair reads them after.
+            canvas = self._blend(up_tiles, out_layout, image, net_scale)
+            if cfg.enable_seam_repair:
+                canvas = self._repair(canvas, up_tiles, out_layout)
             del up_tiles
+            if cfg.enable_color_correction:
+                canvas = color_correction(canvas, image_dev, method="histogram",
+                                          local_filter=False)
         lap0, coarse = canvas if isinstance(canvas, tuple) else (canvas, None)
         crop = dict(crop_h=min(out_layout.padded_h, layout.image_h * net_scale),
                     crop_w=min(out_layout.padded_w, layout.image_w * net_scale))
@@ -461,25 +587,20 @@ class SuperResolutionPipeline:
         with self._stage("save", stage_times):
             if bands is None:
                 bands = save_bands()
-            from .io.native import TiffStreamWriter
-
             crops: List[np.ndarray] = []
-            # Deflate is pure loss on a single-core host.
-            writer = TiffStreamWriter(output_path, th, tw, bit_depth=self.config.bit_depth,
-                                      compress=(os.cpu_count() or 1) > 1)
-            try:
-                row0 = 0
-                for band in _timed(bands, split, "fetch"):
-                    ts = time.time()
-                    writer.write(band)
-                    split["write"] += time.time() - ts
-                    if quality_report is not None:
-                        self._sample_fullres_crops(band, row0, th, crops)
-                    row0 += band.shape[0]
-            finally:
+            if output_path.lower().endswith((".tiff", ".tif")):
+                self._write_tiff(output_path, bands, th, tw, split,
+                                 crops if quality_report is not None else None)
+            else:
+                # reference pipeline.py:1340-1354: one array through save_image
+                out = np.concatenate(list(_timed(bands, split, "fetch")), axis=0)
+                if quality_report is not None:
+                    self._sample_fullres_crops(out, 0, th, crops)
+                if out.dtype == np.uint16:  # PNG and JPEG are 8-bit here
+                    out = (out // 257).astype(np.uint8)
                 ts = time.time()
-                writer.close()  # joins the deflate threads and writes the file
-                split["close"] = time.time() - ts
+                save_image(output_path, out)
+                split["write"] = time.time() - ts
             if quality_report is not None:
                 ts = time.time()
                 if crops:

@@ -38,7 +38,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().splitlines()[-1].split("|")
-    assert int(count) >= 34  # every module, the QA and routing ones too
+    # every module: the QA and routing ones, the CLI and __main__, seam
+    # repair, colour correction and content-aware tiling too
+    assert int(count) >= 41
     assert bad == "", f"imported: {bad}"
 
 

@@ -142,14 +142,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one(entry):
 
 
 def test_process_returns_failure_instead_of_raising(image, tmp_path):
-    pipe = SuperResolutionPipeline(_port())
-    res = pipe.process(image, str(tmp_path / "o.tiff"))  # untrained, ibp_steps=4
-    assert not res.success and "back_project" in res.error_message
-    res = pipe.process(image, str(tmp_path / "o.png"))
-    assert not res.success and "TIFF" in res.error_message
+    pipe = SuperResolutionPipeline(_port(target_resolution="160x160"))
+    res = pipe.process(str(tmp_path / "missing.png"), str(tmp_path / "o.tiff"))
+    assert not res.success and "No such file" in res.error_message
+    res = pipe.process(image, str(tmp_path / "o.xyz"))  # neither TIFF, PNG nor a PIL format
+    assert not res.success and ".xyz" in res.error_message
 
 
-@pytest.mark.parametrize("field,value", [("provider", "fast"), ("blend_method", "weighted"),
+@pytest.mark.parametrize("field,value", [("provider", "fast"), ("provider", "zssr"),
                                          ("sr_gain_route", "zssr")])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="not ported"):
