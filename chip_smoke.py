@@ -52,14 +52,30 @@ in order, each printing one JSON line with its seconds:
    colour correction and content-aware seams, TIFFs within 1 LSB; and
    seam detection and repair of a scene with medium and high seams, the
    same seams and canvases within 1e-3;
-10. kernel_shapes: K1 and K2 timed at every distinct (input, output)
-   shape that the three warm-up runs launched, each with its launches per
+10. providers: ``process()`` at full width (the 720x1280 input to the
+   100MP preset, QA, routing and selection off, weights seeded) for six
+   serving cases: ``fusion`` with the packaged x3 members (a FUSION.json
+   the smoke writes), ``quality`` with the dihedral self-ensemble,
+   ``quality`` with ``prompt="food"`` and a seeded conditioned polish,
+   ``hybrid`` with an untrained ``edsr_xl`` and a seeded ``espcn_polish``,
+   ``fast`` with a seeded ``espcn``, and ``rcan`` as the quality net. Each
+   a warm-up with every K1/K2 launch held against the plain version, then
+   a timed run with the counts reset: MP/s, stage times, peak memory, and
+   the nets and passes of each step from ``last_run_info``; fusion must
+   show its members with 8 passes for each "+" member, the ensemble 8
+   passes a step, and the prompt's pixels must differ from the quality
+   path's;
+11. provider_reference: the six cases on a small input (48x64 -> 192x144,
+   one x3 step), card against CPU in float32: TIFFs within 1 LSB and the
+   same nets and passes; and fusion in bfloat16, held to a PSNR floor;
+12. kernel_shapes: K1 and K2 timed at every distinct (input, output)
+   shape that the warm-up runs launched, each with its launches per
    path, bound and share of the bound.
 
-With ``--profile`` it then runs both paths once more under
-``torch.profiler`` and prints the device's busy share, per stage and in
-all, its time by kernel (K1 and K2 always, in all and per launch with its
-shape) and by op, and the in-place adds by input shape.
+With ``--profile`` it then runs both paths and the fusion case once more
+under ``torch.profiler`` and prints the device's busy share, per stage
+and in all, its time by kernel (K1 and K2 always, in all and per launch
+with its shape) and by op, and the in-place adds by input shape.
 Then it prints a ``done`` line with the total seconds, the kernels' JSON
 line (each kernel's entry with its ``shapes`` of phase 10), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -156,6 +172,20 @@ BENCH_LEDGER = {
     "edsr_m_x3": {"photo_panel": {"mean_delta": 0.535}},
     "rcan_x3": {"photo_panel": {"mean_delta": 0.424}},
 }
+# The fusion provider's x3 entry, copied from
+# srs_tpu/models/checkpoints/FUSION.json (not copied to the card).
+FUSION_X3 = {
+    "members": ["edsr_xl+", "edsr_l+", "edsr_xl", "edsr_l", "rcan", "edsr_m", "espcn",
+                "bicubic"],
+    "weights": [1.3050431994500786, -0.25185268609706596, 0.023280029149568483,
+                0.021172885707446146, -0.04115265343518079, -0.022893618015028455,
+                -0.09080329161565738, 0.05720613485583925],
+}
+# Card against CPU for the fusion case in bfloat16 (weights up to 1.31 in
+# magnitude scale each member's bf16 difference between cuDNN and the
+# CPU): PSNR between the two TIFFs, measured near 69 dB on an H100; the
+# floor is the one the CPU tests hold a bf16 net to against the JAX net.
+FUSION_BF16_PSNR_FLOOR = 45.0
 # Report keys the bench path must produce, each finite.
 REPORT_KEYS = ("psnr", "ssim", "ms_ssim", "lpips_vgg", "lpips_alex", "niqe", "brisque",
                "fullres_niqe", "fullres_brisque", "fullres_sharpness", "fullres_contrast",
@@ -572,29 +602,36 @@ def launches_by_shape(held: dict) -> dict:
     return out
 
 
-def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, **flags):
+def xl_weights() -> dict:
+    """Seeded weights at edsr_xl's full width for every scale the reference
+    ships trained (x2, x3, x4), so the ladder choice matches it."""
+    from srs_tpu_torch.models.registry import seeded_params
+
+    return {("edsr_xl", s): seeded_params("edsr_xl", s, seed=10 + s) for s in (2, 3, 4)}
+
+
+def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, weights=None,
+               prompt=None, **flags):
     """One path of ``process()`` on the 720x1280 input to the 100MP preset:
     a warm-up run with every K1/K2 launch held against its plain version,
     then a run with the launch counts set to 0 just before it and read just
-    after. Returns (numbers, pipeline, result, path of the output)."""
+    after. ``flags`` override the quality path's configuration; ``weights``
+    default to :func:`xl_weights`. Returns (numbers, pipeline, result, path
+    of the output)."""
     from srs_tpu_torch.io.native import read_tiff
-    from srs_tpu_torch.models.registry import seeded_params
     from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
 
-    cfg = PipelineConfig(
-        block_size=512, overlap_ratio=0.2, target_resolution="100MP",
-        provider="quality", quality_model="edsr_xl", ibp_steps=4, bit_depth=8,
-        device="cuda", **flags,
-    )
-    # Seeded weights at edsr_xl's full width for every scale the reference
-    # ships trained (x2, x3, x4), so the ladder choice matches it.
-    weights = {("edsr_xl", s): seeded_params("edsr_xl", s, seed=10 + s) for s in (2, 3, 4)}
-    pipe = SuperResolutionPipeline(cfg, weights)
+    cfg = dict(block_size=512, overlap_ratio=0.2, target_resolution="100MP",
+               provider="quality", quality_model="edsr_xl", ibp_steps=4, bit_depth=8,
+               device="cuda")
+    cfg.update(flags)
+    pipe = SuperResolutionPipeline(PipelineConfig(**cfg),
+                                   xl_weights() if weights is None else weights)
     path = os.path.join(tmp, f"out_{name}.tiff")
 
     K.reset_launches()
     with held_against_plain(K) as records:
-        warm = pipe.process(image, path)
+        warm = pipe.process(image, path, prompt=prompt)
     if not warm.success:
         fail(f"{name}: warm-up process() failed: {warm.error_message}")
     os.remove(path)
@@ -604,7 +641,7 @@ def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, **flags):
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     t0 = time.time()
-    res = pipe.process(image, path)
+    res = pipe.process(image, path, prompt=prompt)
     elapsed = time.time() - t0
     launches = dict(K.LAUNCHES)
     if not res.success:
@@ -982,6 +1019,135 @@ def blend_reference(torch, tmp: str) -> dict:
     return out
 
 
+def provider_cases(ledger: str) -> dict:
+    """The six serving cases: name -> (config flags, weights, prompt). Every
+    fusion member is seeded at x3, edsr_xl at x2/x3/x4 (the ladder's nets)."""
+    from srs_tpu_torch.models.registry import seeded_params
+
+    xl = xl_weights()
+    members = {(m, 3): seeded_params(m, 3, seed=20 + i)
+               for i, m in enumerate(("edsr_l", "rcan", "edsr_m", "espcn"))}
+    return {
+        "fusion": (dict(provider="fusion", checkpoint_dir=ledger), {**xl, **members}, None),
+        "self_ensemble": (dict(self_ensemble=True), xl, None),
+        "prompt": ({}, {**xl, ("cond_polish", 1): seeded_params("cond_polish", 1, seed=30)},
+                   "food"),
+        "hybrid": (dict(provider="hybrid"),
+                   {("espcn_polish", 1): seeded_params("espcn_polish", 1, seed=31)}, None),
+        "fast": (dict(provider="fast"),
+                 {("espcn", s): seeded_params("espcn", s, seed=40 + s) for s in (2, 3, 4)},
+                 None),
+        "rcan": (dict(quality_model="rcan"),
+                 {("rcan", s): seeded_params("rcan", s, seed=50 + s) for s in (2, 3, 4)},
+                 None),
+    }
+
+
+def expected_members(name: str) -> list:
+    """The [net, passes] each ladder step of a case must report."""
+    fused = [[m.rstrip("+"), 8 if m.endswith("+") else 1]
+             for m in FUSION_X3["members"] if m != "bicubic"]
+    return {"fusion": fused, "self_ensemble": [["edsr_xl", 8]], "prompt": [["edsr_xl", 1]],
+            "hybrid": [["edsr_xl", 1], ["espcn_polish", 1]], "fast": [["espcn", 1]],
+            "rcan": [["rcan", 1]]}[name]
+
+
+def write_fusion_ledger(tmp: str) -> str:
+    ledger = os.path.join(tmp, "fusion_ledger")
+    os.makedirs(ledger, exist_ok=True)
+    with open(os.path.join(ledger, "FUSION.json"), "w") as f:
+        json.dump({"x3": FUSION_X3}, f)
+    return ledger
+
+
+# What each provider path runs with the quality path's flags (routing,
+# selection and QA off).
+PROVIDER_FLAGS = dict(auto_route=False, per_scale_selection=False, enable_qa=False)
+
+
+def providers(torch, K, tmp: str, image: np.ndarray, quality_tiff: str):
+    """The six serving cases at full width (module docstring, phase 10).
+    Returns (numbers, pipeline) per case."""
+    from srs_tpu_torch.io.native import read_tiff
+
+    out, pipes = {}, {}
+    for name, (flags, weights, prompt) in provider_cases(write_fusion_ledger(tmp)).items():
+        nums, pipe, _res, path = drive_path(torch, K, tmp, f"provider_{name}", image,
+                                            weights=weights, prompt=prompt,
+                                            **{**PROVIDER_FLAGS, **flags})
+        info = pipe.last_run_info
+        want = expected_members(name)
+        if info["step_members"] != [want, want]:
+            fail(f"providers: {name}: step members {info['step_members']}, want {want} "
+                 "at each of the two steps")
+        served = {"fusion": "fusion", "hybrid": "hybrid", "fast": "fast"}.get(name, "quality")
+        if info["provider"] != served:
+            fail(f"providers: {name}: served {info['provider']}, want {served}")
+        if name == "prompt":
+            if not info["conditioned"] or info["prompt_category"] != "food":
+                fail(f"providers: prompt: not conditioned: {info['prompt_category']}")
+            # the quality path's TIFF: the same nets and input, unconditioned
+            diff = np.abs(read_tiff(path).astype(np.int16) - read_tiff(quality_tiff))
+            nums["prompt_vs_quality_path"] = {"mean_abs_lsb": float(diff.mean()),
+                                              "max_lsb": int(diff.max()),
+                                              "frac_differing": float((diff > 0).mean())}
+            if diff.max() == 0:
+                fail("providers: prompt: the conditioned output equals the quality path's")
+        os.remove(path)
+        nums.update(provider=info["provider"], models=info["models"],
+                    step_members=info["step_members"], self_ensemble=info["self_ensemble"],
+                    conditioned=info["conditioned"])
+        out[name], pipes[name] = nums, pipe
+    return out, pipes
+
+
+def provider_reference(torch, tmp: str) -> dict:
+    """The six cases on a small input, card against CPU (module docstring,
+    phase 11)."""
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+
+    image = synthetic_image(48, 64, seed=6)
+    cases = provider_cases(write_fusion_ledger(tmp))
+    runs = [(name, "float32") for name in cases] + [("fusion", "bfloat16")]
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, dtype in runs:
+        flags, weights, prompt = cases[name]
+        got = {}
+        for device in ("cuda", "cpu"):
+            cfg = PipelineConfig(**{"block_size": 32, "target_resolution": "192x144",
+                                    "quality_model": "edsr_xl", "compute_dtype": dtype,
+                                    "device": device, **PROVIDER_FLAGS, **flags})
+            path = os.path.join(tmp, f"prov_{name}_{dtype}_{device}.tiff")
+            pipe = SuperResolutionPipeline(cfg, weights)
+            t0 = time.time()
+            res = pipe.process(image, path, prompt=prompt)
+            if not res.success:
+                fail(f"provider_reference: {name} {dtype} on {device}: {res.error_message}")
+            got[device] = (read_tiff(path).astype(np.int16), pipe.last_run_info,
+                           time.time() - t0)
+        (a, info, t_gpu), (b, cpu_info, t_cpu) = got["cuda"], got["cpu"]
+        diff = np.abs(a - b)
+        key = name if dtype == "float32" else f"{name}_{dtype}"
+        if a.shape != (144, 192, 3) or info["step_members"] != cpu_info["step_members"] \
+                or info["step_members"] != [expected_members(name)]:
+            fail(f"provider_reference: {key}: shape {a.shape}, step members card "
+                 f"{info['step_members']}, CPU {cpu_info['step_members']}")
+        mse = float(np.mean(diff.astype(np.float64) ** 2))
+        psnr = float(10 * np.log10(255.0**2 / max(mse, 1e-12)))
+        out[key] = {"max_lsb": int(diff.max()), "frac_differing": float((diff > 0).mean()),
+                    "psnr_db": psnr, "seconds": [t_gpu, t_cpu]}
+        if dtype == "float32" and diff.max() > 1:
+            fail(f"provider_reference: card and CPU disagree on {key}: max diff "
+                 f"{diff.max()} LSB")
+        if dtype == "bfloat16" and psnr < FUSION_BF16_PSNR_FLOOR:
+            fail(f"provider_reference: {key}: card against CPU {psnr:.2f} dB < "
+                 f"{FUSION_BF16_PSNR_FLOOR} dB")
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
 def profile_main_path(torch, K, pipe, image, tmp: str) -> dict:
     """One more run of a path under torch.profiler: the device's busy share
     of the wall time, per pipeline stage and in all, and its time by kernel
@@ -1120,9 +1286,18 @@ def main() -> int:
         emit("blend_reference", t0, **blend_reference(torch, tmp))
 
         t0 = time.time()
+        prov, prov_pipes = providers(torch, K, tmp, image,
+                                     os.path.join(tmp, "out_main_path.tiff"))
+        emit("providers", t0, **prov)
+
+        t0 = time.time()
+        emit("provider_reference", t0, **provider_reference(torch, tmp))
+
+        t0 = time.time()
         held = {"main_path": main["held_against_plain"],
                 "bench_path": bench["held_against_plain"],
-                "cli_path": cli["held_against_plain"]}
+                "cli_path": cli["held_against_plain"],
+                **{f"provider_{k}": v["held_against_plain"] for k, v in prov.items()}}
         shapes = time_kernel_shapes(torch, K, held)
         emit("kernel_shapes", t0, **shapes)
 
@@ -1132,6 +1307,9 @@ def main() -> int:
             t0 = time.time()
             emit("profile_bench_path", t0,
                  **profile_main_path(torch, K, bench_pipe, image, tmp))
+            t0 = time.time()
+            emit("profile_fusion", t0,
+                 **profile_main_path(torch, K, prov_pipes["fusion"], image, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1145,7 +1323,9 @@ def main() -> int:
             "launches": bench["launches"][name],
             "launches_by_path": {"bench_path": bench["launches"][name],
                                  "main_path": main["launches"][name],
-                                 "cli_path": cli["launches"][name]},
+                                 "cli_path": cli["launches"][name],
+                                 **{f"provider_{k}": v["launches"][name]
+                                    for k, v in prov.items()}},
             "max_abs_err": max(d["max_abs_err"],
                                *(h[name]["max_abs_err"] for h in held.values())),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],

@@ -6,7 +6,8 @@
 It takes the reference's flags. Those the port serves build a
 ``PipelineConfig``; ``--device`` (``cuda`` by default, ``cpu`` for the
 plain PyTorch versions) is the port's own. Flags whose feature is not
-ported exit with code 2 and say which ROADMAP item holds it. The other
+ported (``--provider zssr``, ``--zssr-steps``, ``--mesh``, ``--checkpoint``,
+``--profile``) exit with code 2 and say which ROADMAP item holds it. The other
 subcommands of the reference (bench, warmup, webui, train, generate,
 info) are not ported (ROADMAP Queue 1, item 8).
 """
@@ -20,16 +21,12 @@ from typing import List, Optional
 # Flags of the reference whose feature the port has not yet: (the
 # attribute, the value that means "not asked for", what holds it).
 _UNPORTED_FLAGS = (
-    ("zssr_steps", 150, "--zssr-steps: the zssr provider (ROADMAP Queue 1, item 7)"),
+    ("zssr_steps", 150, "--zssr-steps: the zssr provider (ROADMAP Queue 1: the training "
+                        "slice)"),
     ("mesh", None, "--mesh: the parallel/ mesh (ROADMAP Queue 1, item 8)"),
     ("checkpoint", False, "--checkpoint: SR resume and the tile store (ROADMAP Queue 1, item 6)"),
-    ("self_ensemble", False,
-     "--self-ensemble: the dihedral self-ensemble (ROADMAP Queue 1, item 7)"),
-    ("prompt", None, "--prompt: FiLM cond_polish conditioning (ROADMAP Queue 1, item 7)"),
     ("profile", None, "--profile: the device trace (ROADMAP Queue 1, item 8)"),
 )
-# Registry nets of the reference that the port has not yet.
-_UNPORTED_MODELS = ("rcan", "espcn")
 
 
 def _cmd_process(args: argparse.Namespace) -> int:
@@ -37,10 +34,6 @@ def _cmd_process(args: argparse.Namespace) -> int:
         if getattr(args, attr) != default:
             print(f"NotImplementedError: {what} is not ported yet", file=sys.stderr)
             return 2
-    if args.quality_model in _UNPORTED_MODELS:
-        print(f"NotImplementedError: --quality-model {args.quality_model}: the ESPCN and "
-              "RCAN nets are not ported yet (ROADMAP Queue 1, item 7)", file=sys.stderr)
-        return 2
     from .pipeline import PipelineConfig, SuperResolutionPipeline
 
     try:
@@ -58,12 +51,13 @@ def _cmd_process(args: argparse.Namespace) -> int:
             enable_color_correction=args.color_correction,
             content_aware=args.content_aware,
             per_scale_selection=not args.pin_quality_model,
+            self_ensemble=args.self_ensemble,
             device=args.device,
         )
     except NotImplementedError as e:
         print(f"NotImplementedError: {e}", file=sys.stderr)
         return 2
-    result = SuperResolutionPipeline(cfg).process(args.input, args.output)
+    result = SuperResolutionPipeline(cfg).process(args.input, args.output, prompt=args.prompt)
     if result.success:
         print(f"OK {result.output_path} ({result.processing_time:.1f}s, "
               f"{result.total_blocks} tiles)")
@@ -89,7 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--overlap", type=float, default=0.2)
     pp.add_argument("--provider", default="quality",
                     choices=["quality", "fast", "hybrid", "bicubic", "zssr", "fusion"],
-                    help="only quality is ported")
+                    help="zssr is not ported")
     pp.add_argument("--blend", default="laplacian",
                     choices=["laplacian", "multi_band", "weighted", "feather",
                              "gradient_domain", "poisson"])
@@ -115,8 +109,11 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--content-aware", action="store_true",
                     help="seam placement avoids faces/text/salient regions")
     pp.add_argument("--self-ensemble", action="store_true",
-                    help="dihedral self-ensemble (not ported)")
-    pp.add_argument("--prompt", default=None, help="prompt conditioning (not ported)")
+                    help="average the net over the 8 dihedral tile transforms (EDSR '+', "
+                         "8x SR compute)")
+    pp.add_argument("--prompt", default=None,
+                    help="prompt text; a template category name (beauty, 3c, food, ...) "
+                         "steers the conditioned polish")
     pp.add_argument("--no-qa", action="store_true")
     pp.add_argument("--profile", default=None, metavar="DIR", help="device trace (not ported)")
     pp.add_argument("--device", default="cuda", choices=["cuda", "cpu"],

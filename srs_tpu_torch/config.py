@@ -1,9 +1,10 @@
 """Configuration subset the quality path reads (port of ``srs_tpu/config.py``).
 
 ``RESOLUTION_PRESETS`` (reference config.py:24), the ``ModelConfig``
-fields the SR engine uses (config.py:38-70: the quality net, routing,
-per-scale selection, the ledger location and the compute/parameter
-dtypes), and the QA configuration (config.py:174-215).
+fields the SR engine uses (config.py:38-70: the quality and fast nets,
+routing, per-scale selection, the self-ensemble, the ledger location and
+the compute/parameter dtypes), and the QA configuration
+(config.py:174-215).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ class ModelConfig:
     """On-device SR model configuration."""
 
     quality_model: str = "edsr_xl"  # registry key for the quality net
+    fast_model: str = "espcn"  # registry key for the fast net
     # Degradation-aware routing (models/routing.py): damaged inputs serve
     # ``robust_model`` when it is trained.
     auto_route: bool = True
@@ -37,6 +39,9 @@ class ModelConfig:
     # Per-scale selection (models/selection.py): each ladder step serves
     # the panel-best trained net at its scale.
     per_scale_selection: bool = True
+    # Average each net pass over the 8 dihedral transforms of the tile
+    # batch (EDSR's "+" mode; 8x the SR compute).
+    self_ensemble: bool = False
     compute_dtype: str = "bfloat16"  # convolutions; accumulation in f32
     params_dtype: str = "float32"
     # Directory whose EVAL.json (the evidence ledger) selection reads

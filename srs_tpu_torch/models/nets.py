@@ -1,10 +1,12 @@
-"""EDSR quality net and back-projection (port of
-``srs_tpu/models/nets.py:37-94,150-214,295-337``).
+"""The SR nets and back-projection (port of ``srs_tpu/models/nets.py``):
+ESPCN, the fast net and, at ``scale=1``, the hybrid ladder's polish
+(97-147); EDSR, the quality net (150-214); RCAN, EDSR with
+channel-attention blocks (217-292); and ``back_project`` (295-337).
 
-A bicubic-residual EDSR: the output is bicubic upsampling plus the net's
-residual, so a zero tail reproduces bicubic exactly. Inputs and outputs
-are NHWC float32 in [0, 255], as in the reference. The convolutions run
-in ``dtype`` on parameters held in that type.
+Every net is bicubic-residual: the output is bicubic upsampling plus the
+net's residual, so a zero last conv reproduces bicubic exactly. Inputs
+and outputs are NHWC float32 in [0, 255], as in the reference. The
+convolutions run in ``dtype`` on parameters held in that type.
 
 Two layout rules hold against the flax reference (handled by
 ``registry.convert_flax_params``):
@@ -20,7 +22,7 @@ channels_last), which cuDNN runs directly.
 
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,8 +30,8 @@ from torch import nn
 
 from ..ops.resize import resize_area_int, resize_bicubic, resize_bicubic_up
 
-__all__ = ["EDSR", "back_project", "depth_to_space", "shuffle_channel_order",
-           "_shuffle_factors"]
+__all__ = ["ESPCN", "EDSR", "RCAN", "back_project", "depth_to_space",
+           "shuffle_channel_order", "_shuffle_factors"]
 
 
 def depth_to_space(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -64,6 +66,53 @@ def _shuffle_factors(scale: int) -> List[int]:
     return factors
 
 
+def _residual(x: torch.Tensor, scale: int, dtype: torch.dtype):
+    """(bicubic base in float32, normalised NCHW input in ``dtype``) of an
+    NHWC [0, 255] batch."""
+    x = x.float()
+    base = resize_bicubic_up(x, scale) if scale > 1 else x
+    return base, (x / 255.0 - 0.5).to(dtype).permute(0, 3, 1, 2)
+
+
+def _add_residual(base: torch.Tensor, r: torch.Tensor, factors: List[int]) -> torch.Tensor:
+    if factors:
+        r = F.pixel_shuffle(r, factors[-1])
+    return base + r.permute(0, 2, 3, 1).float() * 255.0
+
+
+class ESPCN(nn.Module):
+    """Efficient sub-pixel CNN (Shi et al. 2016 family): the fast net.
+    ``scale=1`` is the polish pass of the hybrid ladder."""
+
+    def __init__(
+        self,
+        scale: int = 2,
+        features: int = 64,
+        channels: int = 3,
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        self.scale = scale
+        self.dtype = dtype
+        half = features // 2
+        self.conv_in = nn.Conv2d(channels, features, 5, padding=2)
+        self.conv_mid = nn.Conv2d(features, half, 3, padding=1)
+        self.factors = _shuffle_factors(scale) if scale > 1 else []
+        self.up_convs = nn.ModuleList(
+            nn.Conv2d(half, half * f * f, 3, padding=1) for f in self.factors[:-1]
+        )
+        out = channels * self.factors[-1] ** 2 if self.factors else channels
+        self.conv_out = nn.Conv2d(half, out, 3, padding=1)
+        self.to(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        base, h = _residual(x, self.scale, self.dtype)
+        h = F.relu(self.conv_mid(F.relu(self.conv_in(h), inplace=True)), inplace=True)
+        for conv, f in zip(self.up_convs, self.factors[:-1]):
+            h = F.relu(F.pixel_shuffle(conv(h), f))
+        return _add_residual(base, self.conv_out(h), self.factors)
+
+
 class _ResBlock(nn.Module):
     def __init__(self, features: int, res_scale: float):
         super().__init__()
@@ -76,8 +125,29 @@ class _ResBlock(nn.Module):
         return x + h * self.res_scale
 
 
+class _CABlock(nn.Module):
+    """Residual channel-attention block: conv-relu-conv, gated per channel
+    by a squeeze-excite of its mean. The mean is taken in float32 and cast
+    back before the 1x1 convs, as the reference does."""
+
+    def __init__(self, features: int, reduction: int, res_scale: float):
+        super().__init__()
+        self.conv0 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
+        self.att0 = nn.Conv2d(features, features // reduction, 1)
+        self.att1 = nn.Conv2d(features // reduction, features, 1)
+        self.res_scale = res_scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(F.relu(self.conv0(x), inplace=True))
+        s = h.float().mean(dim=(2, 3), keepdim=True).to(h.dtype)
+        s = torch.sigmoid(self.att1(F.relu(self.att0(s))))
+        return x + h * s * self.res_scale
+
+
 class EDSR(nn.Module):
-    """EDSR-style quality net (Lim et al. 2017 architecture family)."""
+    """EDSR-style quality net (Lim et al. 2017 architecture family).
+    ``block`` builds each body block (RCAN passes its attention block)."""
 
     def __init__(
         self,
@@ -87,14 +157,16 @@ class EDSR(nn.Module):
         channels: int = 3,
         res_scale: float = 0.1,
         dtype: torch.dtype = torch.bfloat16,
+        block: Optional[Callable[[], nn.Module]] = None,
     ):
         super().__init__()
         self.scale = scale
         self.features = features
         self.channels = channels
         self.dtype = dtype
+        block = block or (lambda: _ResBlock(features, res_scale))
         self.head = nn.Conv2d(channels, features, 3, padding=1)
-        self.blocks = nn.ModuleList(_ResBlock(features, res_scale) for _ in range(num_blocks))
+        self.blocks = nn.ModuleList(block() for _ in range(num_blocks))
         self.body_out = nn.Conv2d(features, features, 3, padding=1)
         factors = _shuffle_factors(scale) if scale > 1 else []
         self.factors = factors
@@ -106,9 +178,7 @@ class EDSR(nn.Module):
         self.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        base = resize_bicubic_up(x, self.scale) if self.scale > 1 else x
-        h = (x / 255.0 - 0.5).to(self.dtype).permute(0, 3, 1, 2)
+        base, h = _residual(x, self.scale, self.dtype)
         h0 = self.head(h)
         h = h0
         for block in self.blocks:
@@ -116,10 +186,25 @@ class EDSR(nn.Module):
         h = self.body_out(h) + h0
         for conv, f in zip(self.up_convs, self.factors[:-1]):
             h = F.pixel_shuffle(conv(h), f)
-        r = self.tail(h)
-        if self.factors:
-            r = F.pixel_shuffle(r, self.factors[-1])
-        return base + r.permute(0, 2, 3, 1).float() * 255.0
+        return _add_residual(base, self.tail(h), self.factors)
+
+
+class RCAN(EDSR):
+    """Channel-attention quality net (Zhang et al. 2018 RCAN family,
+    single-group variant): EDSR's layout with ``_CABlock`` blocks."""
+
+    def __init__(
+        self,
+        scale: int = 2,
+        features: int = 64,
+        num_blocks: int = 10,
+        reduction: int = 8,
+        channels: int = 3,
+        res_scale: float = 0.1,
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__(scale, features, num_blocks, channels, res_scale, dtype,
+                         block=lambda: _CABlock(features, reduction, res_scale))
 
 
 def back_project(

@@ -1,4 +1,7 @@
-"""Model registry for the EDSR family (port of ``srs_tpu/models/registry.py``).
+"""Model registry: ESPCN, EDSR and RCAN nets by name (port of
+``srs_tpu/models/registry.py:28-71``), plus the conditioned polish
+``cond_polish`` (``models/conditioning.py``), which the reference builds
+beside the registry.
 
 The card's machine cannot read the reference's orbax checkpoints, so the
 port never loads them. Parameters are handed in instead:
@@ -24,7 +27,8 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .nets import EDSR, shuffle_channel_order
+from .conditioning import CondPolish
+from .nets import EDSR, ESPCN, RCAN, shuffle_channel_order
 
 __all__ = [
     "ModelSpec",
@@ -44,11 +48,16 @@ class ModelSpec:
 
 
 MODEL_REGISTRY: Dict[str, ModelSpec] = {
+    "espcn": ModelSpec("espcn", ESPCN, {}, "fast sub-pixel CNN"),
+    "espcn_polish": ModelSpec("espcn_polish", ESPCN, {"scale": 1},
+                              "scale-1 polish pass of the hybrid ladder"),
     "edsr_m": ModelSpec("edsr_m", EDSR, {"num_blocks": 8}, "medium quality net"),
     "edsr_l": ModelSpec("edsr_l", EDSR, {"num_blocks": 16, "features": 96}, "large quality net"),
     "edsr_xl": ModelSpec(
         "edsr_xl", EDSR, {"num_blocks": 16, "features": 128}, "flagship quality net"
     ),
+    "rcan": ModelSpec("rcan", RCAN, {"num_blocks": 10},
+                      "channel-attention quality net"),
     "edsr_l_robust": ModelSpec(
         "edsr_l_robust", EDSR, {"num_blocks": 16, "features": 96},
         "degradation-robust large quality net",
@@ -65,11 +74,15 @@ def _torch_dtype(name: str | torch.dtype) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else _DTYPES[str(name)]
 
 
-def _make(name: str, scale: int, dtype: torch.dtype) -> EDSR:
+def _make(name: str, scale: int, dtype: torch.dtype) -> torch.nn.Module:
+    """The net ``name`` at ``scale`` (a spec's own scale wins: the polish
+    is scale 1 whatever the ladder step)."""
+    if name == "cond_polish":
+        return CondPolish(dtype=dtype)
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; registered: {sorted(MODEL_REGISTRY)}")
     spec = MODEL_REGISTRY[name]
-    return spec.ctor(scale=scale, dtype=dtype, **spec.kwargs)
+    return spec.ctor(dtype=dtype, **{"scale": scale, **spec.kwargs})
 
 
 def _conv_from_flax(node: Mapping[str, Any], out_order: Optional[torch.Tensor] = None):
@@ -81,14 +94,38 @@ def _conv_from_flax(node: Mapping[str, Any], out_order: Optional[torch.Tensor] =
     return weight, bias
 
 
+def _shuffled(node: Mapping[str, Any], channels: int):
+    """The conv's output channels permuted for ``F.pixel_shuffle`` when it
+    feeds a shuffle of ``channels`` channels (its outputs are channels * f^2)."""
+    f = math.isqrt(np.shape(node["kernel"])[-1] // channels)
+    return shuffle_channel_order(channels, f) if f > 1 else None
+
+
 def convert_flax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Reference EDSR parameter tree (``{"params": {...}}`` or its inner
-    dict, leaves as arrays) -> the port's EDSR state dict."""
+    """A reference parameter tree (``{"params": {...}}`` or its inner dict,
+    leaves as arrays) of an EDSR, RCAN, ESPCN or CondPolish -> the port's
+    state dict. The family is read from the tree's layer names."""
     p = tree.get("params", tree)
     sd: Dict[str, torch.Tensor] = {}
 
     def put(prefix: str, node, out_order=None):
         sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = _conv_from_flax(node, out_order)
+
+    if "conv_in" in p:  # ESPCN or CondPolish
+        put("conv_in", p["conv_in"])
+        put("conv_mid", p["conv_mid"])
+        if "film" in p:  # a Dense (in, out) kernel is a Linear's (out, in) weight
+            film = p["film"]
+            sd["film.weight"] = torch.from_numpy(np.array(film["kernel"], np.float32).T.copy())
+            sd["film.bias"] = torch.from_numpy(np.array(film["bias"], np.float32))
+        half = np.shape(p["conv_mid"]["kernel"])[-1]
+        i = 0
+        while f"up_{i}" in p:
+            put(f"up_convs.{i}", p[f"up_{i}"], _shuffled(p[f"up_{i}"], half))
+            i += 1
+        channels = np.shape(p["conv_in"]["kernel"])[-2]
+        put("conv_out", p["conv_out"], _shuffled(p["conv_out"], channels))
+        return sd
 
     put("head", p["head"])
     features = np.shape(p["head"]["kernel"])[-1]
@@ -97,34 +134,41 @@ def convert_flax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         put(f"blocks.{i}.conv0", p[f"block_{i}"]["Conv_0"])
         put(f"blocks.{i}.conv1", p[f"block_{i}"]["Conv_1"])
         i += 1
+    i = 0
+    while f"cab_{i}" in p:  # RCAN: two 3x3 convs, then the gate's two 1x1
+        for j, name in enumerate(("conv0", "conv1", "att0", "att1")):
+            put(f"blocks.{i}.{name}", p[f"cab_{i}"][f"Conv_{j}"])
+        i += 1
     put("body_out", p["body_out"])
     i = 0
     while f"up_conv_{i}" in p:
-        f = math.isqrt(np.shape(p[f"up_conv_{i}"]["kernel"])[-1] // features)
-        put(f"up_convs.{i}", p[f"up_conv_{i}"], shuffle_channel_order(features, f))
+        put(f"up_convs.{i}", p[f"up_conv_{i}"], _shuffled(p[f"up_conv_{i}"], features))
         i += 1
-    tail_out = np.shape(p["tail"]["kernel"])[-1]
     channels = np.shape(p["head"]["kernel"])[-2]
-    f = math.isqrt(tail_out // channels)
-    put("tail", p["tail"], shuffle_channel_order(channels, f) if f > 1 else None)
+    put("tail", p["tail"], _shuffled(p["tail"], channels))
     return sd
+
+
+# The layer each family zero-initialises: the residual's last conv.
+_LAST_CONVS = ("tail.", "conv_out.")
 
 
 def seeded_params(
     name: str, scale: int, seed: int = 0, tail_gain: float = 0.02
 ) -> Dict[str, torch.Tensor]:
     """Random parameters for ``name`` at ``scale`` from ``seed``: He-uniform
-    conv weights, zero biases, and the tail scaled by ``tail_gain`` (0 gives
-    the exact-bicubic net)."""
+    weights (convolutions and the FiLM layer), zero biases, and the last
+    conv (``tail`` or ``conv_out``) scaled by ``tail_gain`` (0 gives the
+    exact-bicubic net, or the identity polish)."""
     gen = torch.Generator().manual_seed(seed)
     sd = {}
     for key, ref in _make(name, scale, torch.float32).state_dict().items():
         if key.endswith("bias"):
             sd[key] = torch.zeros_like(ref)
             continue
-        bound = math.sqrt(6.0 / (ref.shape[1] * ref.shape[2] * ref.shape[3]))
+        bound = math.sqrt(6.0 / ref[0].numel())  # fan-in: input channels x taps
         w = (torch.rand(ref.shape, generator=gen) * 2.0 - 1.0) * bound
-        sd[key] = w * tail_gain if key.startswith("tail.") else w
+        sd[key] = w * tail_gain if key.startswith(_LAST_CONVS) else w
     return sd
 
 
@@ -135,13 +179,13 @@ def build_model(
     dtype: str | torch.dtype = "bfloat16",
     params_dtype: str | torch.dtype = "float32",
     device: str | torch.device = "cuda",
-) -> Tuple[EDSR, bool]:
-    """(net in eval mode on ``device``, trained) for a registry entry; the
-    card by default (raises without one).
+) -> Tuple[torch.nn.Module, bool]:
+    """(net in eval mode on ``device``, trained) for a registry entry or
+    ``cond_polish``; the card by default (raises without one).
 
     ``params`` (a state dict, e.g. from :func:`convert_flax_params`) count
     as trained; without them the net is the zero-tail init (exact bicubic,
-    untrained). The parameters are rounded to ``params_dtype`` and held in
+    or the identity polish; untrained). The parameters are rounded to ``params_dtype`` and held in
     the computation type ``dtype``: the values flax computes with when it
     stores ``params_dtype`` and casts at each convolution."""
     dev = resolve_device(device)

@@ -2,7 +2,9 @@
 ``srs_tpu/models/selection.py:1-92``).
 
 Each ladder step serves the trained candidate with the best
-``photo_panel.mean_delta`` at its scale in EVAL.json; the configured net
+``photo_panel.mean_delta`` at its scale in EVAL.json (with the
+self-ensemble on, ``photo_panel_ensemble``'s where a candidate has one:
+the "+" mode ranks the nets differently); the configured net
 only loses a step to a candidate that is trained at that scale and
 strictly better on record. "Trained" is the caller's predicate: in the
 port, a net is trained at a scale when its weights were handed in.
@@ -48,17 +50,19 @@ def panel_best_model(
     default: str,
     is_trained: Callable[[str, int], bool],
     checkpoint_dir: Optional[str] = None,
+    ensemble: bool = False,
 ) -> str:
     """Panel-best trained quality net for one ladder step of ``scale``;
-    ``default`` when no trained candidate carries evidence. (The
-    reference's ``ensemble`` blocks wait for the self-ensemble port.)"""
+    ``default`` when no trained candidate carries evidence. ``ensemble``
+    reads the ``photo_panel_ensemble`` blocks first."""
     data = _ledger(checkpoint_dir)
+    field = "photo_panel_ensemble" if ensemble else "photo_panel"
     order = (default,) + tuple(n for n in QUALITY_CANDIDATES if n != default)
     best_name: Optional[str] = None
     best_delta = float("-inf")
     for name in order:
         entry = data.get(f"{name}_x{scale}") or {}
-        delta = (entry.get("photo_panel") or {}).get("mean_delta")
+        delta = (entry.get(field) or entry.get("photo_panel") or {}).get("mean_delta")
         if delta is None or delta <= best_delta:
             continue
         if not is_trained(name, scale):

@@ -1,15 +1,19 @@
-"""SuperResolutionPipeline — the quality path (port of ``srs_tpu/pipeline.py``).
+"""SuperResolutionPipeline (port of ``srs_tpu/pipeline.py``).
 
-Stages, as the reference runs them for provider ``quality``
-(pipeline.py:896-1392):
+Stages, as the reference runs them (pipeline.py:896-1392), for the
+providers ``quality``, ``fast``, ``hybrid``, ``fusion`` and ``bicubic``:
 
-1. tiling: load the image and upload it once; route it (degradation
-   estimate, then the SR-gain probe, which may send the job to the
-   ``shrink`` or ``bicubic`` ladder with a per-job alpha); choose the
-   ladder from the nets that per-scale selection serves; mirror-pad and
-   cut one [N, B, B, 3] batch;
+1. tiling: load the image and upload it once; for ``quality``,
+   ``hybrid`` and ``fusion``, route it (degradation estimate, then the
+   SR-gain probe, which may send the job to the ``shrink`` or ``bicubic``
+   ladder with a per-job alpha); choose the ladder from the nets the
+   provider serves; mirror-pad and cut one [N, B, B, 3] batch;
 2. super-resolution: the ladder (e.g. [3, 3] for 720p -> 100MP) over the
-   batch, in chunks sized for the card's memory;
+   batch, in chunks sized for the card's memory: per step the provider's
+   nets (``models/sr_module.upscale_tiles``: the fusion members' weighted
+   sum, the dihedral self-ensemble, the hybrid polish, IBP for untrained
+   nets), and on the last step the prompt-conditioned polish when the
+   job names a template category;
 3. blending: by ``blend_method``: the canvas-pyramid Laplacian blend with
    ramp profiles (level-0 collapse deferred unless a post-pass needs the
    canvas), the same with dense distance weights (``multi_band``),
@@ -53,6 +57,7 @@ from .config import RESOLUTION_PRESETS, ModelConfig, QualityAssessmentConfig
 from .io.image import load_image, save_image
 from .models import routing
 from .models.lpips import LPIPSMetric
+from .models.prompts import PromptTemplateManager
 from .models.sr_module import SuperResolutionModule, scale_ladder
 from .ops.blend import (
     blend_finalize_banded,
@@ -78,17 +83,31 @@ __all__ = ["PipelineConfig", "PipelineResult", "SuperResolutionPipeline"]
 
 # Bytes the SR ladder may hold per chunk. The reference caps a chunk at
 # 7e9 bytes for a 16 GB TPU; an 80 GB card takes the 100MP preset's six
-# 4608-px tiles in one chunk.
+# 4608-px tiles in one chunk on the quality path.
 _CHUNK_BYTES = 40e9
+# Bytes per output pixel of a chunk: feature maps at the last step's input
+# resolution plus the float32 output (the reference's estimate, 160);
+# the shrink provider's bicubic arm; a float32 accumulator and member
+# output for the fusion sum and the self-ensemble; the hybrid polish's
+# 64- and 32-channel bfloat16 maps at output resolution; and three live
+# 48-channel bfloat16 maps of the conditioned polish there.
+_PX_BYTES, _SHRINK_PX_BYTES, _MULTIPASS_PX_BYTES = 160, 40, 24
+_POLISH_PX_BYTES, _COND_PX_BYTES = 192, 3 * 96
+
+# Providers whose jobs are routed (degradation estimate and SR-gain
+# probe), as in the reference (pipeline.py:932,954-956).
+_ROUTED_PROVIDERS = ("quality", "hybrid", "fusion")
 
 # Options of the reference that this port does not serve yet, with the
 # values it does serve.
 _NOT_PORTED = {
-    "provider": ("quality",),
+    "provider": ("quality", "fast", "hybrid", "bicubic", "fusion"),
     "blend_method": ("laplacian", "multi_band", "weighted", "weighted_average", "feather",
                      "gradient", "gradient_domain", "poisson"),
-    "sr_gain_route": ("shrink", "bicubic"),  # zssr needs per-image training
+    "sr_gain_route": ("shrink", "bicubic"),
 }
+# zssr fine-tunes the net on each input: it comes with the training slice.
+_TRAINING_SLICE = "zssr trains the net per image (ROADMAP Queue 1: the training slice)"
 
 
 @dataclass
@@ -104,8 +123,9 @@ class PipelineConfig:
     blend_method: str = "laplacian"
     num_pyramid_levels: int = 6
     enable_qa: bool = True
-    provider: str = "quality"
+    provider: str = "quality"  # quality | fast | hybrid | bicubic | fusion
     quality_model: str = "edsr_xl"
+    fast_model: str = "espcn"  # the fast net (provider fast)
     # Probe each input's noise and blur (damaged inputs serve the robust
     # net when it is trained) and its SR gain over bicubic.
     auto_route: bool = True
@@ -120,6 +140,12 @@ class PipelineConfig:
     texture_models: Tuple[str, ...] = ()
     # Each ladder step serves the panel-best trained net at its scale.
     per_scale_selection: bool = True
+    # Average every net pass over the 8 dihedral tile transforms (EDSR's
+    # "+" mode; 8x the SR compute).
+    self_ensemble: bool = False
+    # A prompt template category (models/prompts.py) for the conditioned
+    # polish after the ladder; None leaves the output unconditioned.
+    prompt_category: Optional[str] = None
     # Directory whose EVAL.json selection reads before the packaged one.
     checkpoint_dir: Optional[str] = None
     ibp_steps: int = 8  # back-projection steps; only untrained nets use them
@@ -134,11 +160,11 @@ class PipelineConfig:
 
     def __post_init__(self) -> None:
         for name, served in _NOT_PORTED.items():
-            if getattr(self, name) not in served:
+            value = getattr(self, name)
+            if value not in served:
+                why = _TRAINING_SLICE if value == "zssr" else "ROADMAP Queue 1"
                 raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet "
-                    f"(ROADMAP Queue 1); use one of {served!r}"
-                )
+                    f"{name}={value!r} is not ported yet ({why}); use one of {served!r}")
         if self.bit_depth not in (8, 16):
             raise ValueError(f"bit_depth must be 8 or 16, got {self.bit_depth}")
 
@@ -198,9 +224,11 @@ class SuperResolutionPipeline:
         self.sr_module = SuperResolutionModule(
             ModelConfig(
                 quality_model=self.config.quality_model,
+                fast_model=self.config.fast_model,
                 auto_route=self.config.auto_route,
                 robust_model=self.config.robust_model,
                 per_scale_selection=self.config.per_scale_selection,
+                self_ensemble=self.config.self_ensemble,
                 compute_dtype=self.config.compute_dtype,
                 params_dtype=self.config.params_dtype,
                 checkpoint_dir=self.config.checkpoint_dir,
@@ -239,29 +267,39 @@ class SuperResolutionPipeline:
             tw = int(th * aspect)
         return (tw, th)
 
+    def _trained_scales(self, model: Optional[str] = None) -> Optional[set]:
+        """Scales whose net the configured provider serves trained; None (no
+        preference) for ``bicubic`` (reference pipeline.py:288-299)."""
+        if self.config.provider == "bicubic":
+            return None
+        return self.sr_module.trained_scales(self.config.provider, model=model)
+
     def _route(self, image: torch.Tensor, scale_total: float):
         """Degradation routing, the ladder, and the SR-gain probe
-        (reference pipeline.py:924-1022). Returns (ladder, routed model,
-        routed provider, alpha, record); the record also goes to
+        (reference pipeline.py:924-1022); routing and the probe run for the
+        providers in ``_ROUTED_PROVIDERS`` only. Returns (ladder, routed
+        model, routed provider, alpha, record); the record also goes to
         ``last_run_info["routing"]``."""
         cfg, sr = self.config, self.sr_module
         info: Dict[str, Any] = {"degradation": None, "sr_gain": None, "alpha": None,
                                 "errors": []}
+        routed = cfg.provider in _ROUTED_PROVIDERS
         routed_model: Optional[str] = None
-        try:
-            routed_model, est = sr.route_for(image)
-            if est is not None:
-                info["degradation"] = dataclasses.asdict(est)
-        except Exception as e:  # noqa: BLE001 - routing is best-effort
-            routed_model = None
-            info["errors"].append(f"routing: {type(e).__name__}: {e}")
-            logger.warning("degradation routing failed: %s", e)
-        ladder = scale_ladder(scale_total, trained=sr.trained_scales(model=routed_model))
+        if routed:
+            try:
+                routed_model, est = sr.route_for(image)
+                if est is not None:
+                    info["degradation"] = dataclasses.asdict(est)
+            except Exception as e:  # noqa: BLE001 - routing is best-effort
+                routed_model = None
+                info["errors"].append(f"routing: {type(e).__name__}: {e}")
+                logger.warning("degradation routing failed: %s", e)
+        ladder = scale_ladder(scale_total, trained=self._trained_scales(routed_model))
         routed_provider: Optional[str] = None
         alpha: Optional[float] = None
-        if cfg.auto_route and routed_model is None and ladder:
+        if cfg.auto_route and routed and routed_model is None and ladder:
             try:
-                probe_model = sr.resolve_ladder_models([int(ladder[0])])[0]
+                probe_model = sr.resolve_ladder_models([int(ladder[0])], cfg.provider)[0]
                 args = dict(weights=sr.weights, device=self.device, nets=sr.probe_nets)
                 sr_gain, shrink_alpha = None, None
                 if cfg.sr_gain_route == "shrink":
@@ -294,29 +332,85 @@ class SuperResolutionPipeline:
 
     def _upscale_batch(self, tiles: torch.Tensor, ladder: List[int],
                        provider: Optional[str] = None, model: Optional[str] = None,
-                       alpha: Optional[float] = None) -> torch.Tensor:
-        """The net ladder over the tile batch, chunked to bound memory.
-        ``alpha`` is this job's shrinkage (the shrink provider only)."""
+                       alpha: Optional[float] = None,
+                       category: Optional[str] = None) -> torch.Tensor:
+        """The ladder over the tile batch, chunked to bound memory: each
+        step through ``upscale_tiles``, with ``category``'s conditioned
+        polish on the last step (on the tiles when the ladder is empty).
+        ``alpha`` is this job's shrinkage (the shrink provider only).
+
+        The reference runs its multi-pass providers (fusion, the
+        self-ensemble) through a staged program when every step is trained
+        (pipeline.py:471-540), a workaround for the TPU compiler; its
+        result is ``upscale_tiles``' step by step, which the port runs."""
         provider = provider or self.config.provider
+        sr = self.sr_module
+        sr.build_nets(ladder, provider, model, category)  # before the first chunk
+        conditioned = sr.conditions(category)
         n = int(tiles.shape[0])
         final_block = int(tiles.shape[1]) * int(np.prod(ladder)) if ladder else int(tiles.shape[1])
-        # ~160 B per output pixel: feature maps at the last step's input
-        # resolution plus the float32 output (the reference's estimate);
-        # the shrink provider holds one more output (the bicubic arm).
-        per_px = 200 if provider == "shrink" else 160
+        multipass = self.config.self_ensemble or provider == "fusion"
+        polished = provider == "hybrid" and sr.is_trained("espcn_polish", 1)
+        per_px = (_PX_BYTES + _SHRINK_PX_BYTES * (provider == "shrink")
+                  + _MULTIPASS_PX_BYTES * multipass + _POLISH_PX_BYTES * polished
+                  + _COND_PX_BYTES * conditioned)
         chunk = max(1, min(n, int(_CHUNK_BYTES // (final_block * final_block * per_px))))
         outs = []
         for i in range(0, n, chunk):
             cur = tiles[i : i + chunk]
             for si, s in enumerate(ladder):
                 last = si == len(ladder) - 1
-                cur = self.sr_module.upscale_tiles(
+                cur = sr.upscale_tiles(
                     cur, s, provider=provider,
                     steps=self.config.ibp_steps if last else 0, model=model,
+                    category=category if last else None,
                     alpha=1.0 if alpha is None else alpha,
                 )
+            if not ladder:
+                cur = sr._conditioned(cur, category)
             outs.append(cur)
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+    def _run_info(self, ladder, layout, routed_provider, routed_model, alpha, route_info,
+                  category) -> Dict[str, Any]:
+        """What the SR stage served (reference pipeline.py:1108-1176): the
+        provider (``fusion`` only where a step fused its members; a fusion
+        that resolved no members at any step served ``quality`` and says
+        so), the net of each step, and per step the [net, passes] it ran
+        (8 passes for a dihedral "+" pass; the hybrid polish as
+        ``espcn_polish``)."""
+        cfg, sr = self.config, self.sr_module
+        asked = routed_provider or cfg.provider
+        served = asked
+        step_models = step_members = None
+        model_used = routed_model
+        if asked != "bicubic":
+            if asked == "fusion" and (routed_model is not None
+                                      or not any(sr._fusion_for(int(s)) for s in ladder)):
+                served = "quality"
+            step_models = sr.resolve_ladder_models(ladder, served, routed_model)
+            step_members = [[list(m) for m in sr.step_members(int(s), served, routed_model)]
+                            for s in ladder]
+            model_used = routed_model or (step_models[0] if step_models else
+                                          cfg.fast_model if served == "fast"
+                                          else cfg.quality_model)
+        route_info.update(provider=served, model=routed_model, ladder_models=step_models)
+        return {
+            "ladder": list(ladder),
+            "num_tiles": int(layout.num_tiles),
+            "block": int(layout.block),
+            "provider": served,
+            "requested_provider": asked,
+            "model": model_used,
+            "models": step_models,
+            "step_members": step_members,
+            "self_ensemble": cfg.self_ensemble,
+            "prompt_category": category,
+            "conditioned": sr.conditions(category),
+            "sr_gain_probe": route_info["sr_gain"],
+            "sr_gain_alpha": alpha if served == "shrink" else None,
+            "routing": route_info,
+        }
 
     def _zone(self, image: np.ndarray, out_layout, net_scale: int) -> np.ndarray:
         """The input's forbidden zone, repeated to the output scale and cut
@@ -456,16 +550,22 @@ class SuperResolutionPipeline:
         self,
         input_path: Union[str, np.ndarray],
         output_path: str,
+        prompt: Optional[str] = None,
     ) -> PipelineResult:
         """Super-resolve one image (a path or an (H, W, 3) array in
         [0, 255]) to ``target_resolution`` and write ``output_path`` (TIFF,
         PNG, or JPEG where PIL is installed), plus ``<out>_qa_report.json``
-        with QA on."""
+        with QA on. A ``prompt`` that names a template category
+        (``models/prompts.py``) steers this job's conditioned polish in
+        place of ``prompt_category``; other prompts change nothing
+        (reference pipeline.py:896-912)."""
         start = time.time()
         stage_times: Dict[str, float] = {}
+        category = (prompt if prompt in PromptTemplateManager.TEMPLATES
+                    else self.config.prompt_category)
         try:
             with torch.inference_mode():
-                return self._process(input_path, output_path, start, stage_times)
+                return self._process(input_path, output_path, start, stage_times, category)
         except Exception as e:  # noqa: BLE001 - parity: never raise
             logger.exception("pipeline failed")
             return PipelineResult(
@@ -509,7 +609,8 @@ class SuperResolutionPipeline:
             writer.close()  # joins the deflate threads and writes the file
             split["close"] = time.time() - ts
 
-    def _process(self, input_path, output_path, start, stage_times) -> PipelineResult:
+    def _process(self, input_path, output_path, start, stage_times,
+                 category: Optional[str]) -> PipelineResult:
         cfg = self.config
         with self._stage("tiling", stage_times):
             image = (
@@ -525,27 +626,12 @@ class SuperResolutionPipeline:
             layout, tiles = self.tiling_module.split_to_batch(image_dev, self.device)
 
         with self._stage("super_resolution", stage_times):
-            up_tiles = self._upscale_batch(tiles, ladder, routed_provider, routed_model, alpha)
+            up_tiles = self._upscale_batch(tiles, ladder, routed_provider, routed_model, alpha,
+                                           category)
             del tiles
         net_scale = int(np.prod(ladder)) if ladder else 1
-        prov_used = routed_provider or self.config.provider
-        step_models = model_used = None
-        if prov_used in ("quality", "shrink"):
-            step_models = self.sr_module.resolve_ladder_models(ladder, routed_model)
-            model_used = routed_model or (step_models[0] if step_models
-                                          else self.config.quality_model)
-        route_info.update(provider=prov_used, model=routed_model, ladder_models=step_models)
-        self.last_run_info = {
-            "ladder": list(ladder),
-            "num_tiles": int(layout.num_tiles),
-            "block": int(layout.block),
-            "provider": prov_used,
-            "model": model_used,
-            "models": step_models,
-            "sr_gain_probe": route_info["sr_gain"],
-            "sr_gain_alpha": alpha if prov_used == "shrink" else None,
-            "routing": route_info,
-        }
+        self.last_run_info = self._run_info(ladder, layout, routed_provider, routed_model,
+                                            alpha, route_info, category)
 
         with self._stage("blending", stage_times):
             out_layout = layout.scaled(net_scale)

@@ -119,22 +119,19 @@ def test_png_output_and_qa_report(png, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,needle", [
-    (["--provider", "fast"], "provider='fast' is not ported"),
+    (["--provider", "zssr"], "provider='zssr' is not ported"),
     (["--zssr-steps", "10"], "--zssr-steps"),
     (["--mesh", "data=2"], "--mesh"),
     (["--checkpoint"], "--checkpoint"),
-    (["--self-ensemble"], "--self-ensemble"),
-    (["--prompt", "beauty"], "--prompt"),
     (["--profile", "trace"], "--profile"),
-    (["--quality-model", "rcan"], "RCAN"),
 ])
 def test_unported_flags_exit_nonzero_with_their_message(png, tmp_path, capsys, args, needle):
     out = str(tmp_path / "o.tiff")
     assert main(["process", png, out, *FLAGS, *args]) == 2
     err = capsys.readouterr().err
-    assert needle in err and "not ported" in err
-    if not args[0].startswith("--provider"):
-        assert "ROADMAP" in err
+    assert needle in err and "not ported" in err and "ROADMAP" in err
+    if "zssr" in args[0] + args[-1]:
+        assert "the training slice" in err
     assert not os.path.exists(out)
 
 
