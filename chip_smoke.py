@@ -68,7 +68,21 @@ in order, each printing one JSON line with its seconds:
 11. provider_reference: the six cases on a small input (48x64 -> 192x144,
    one x3 step), card against CPU in float32: TIFFs within 1 LSB and the
    same nets and passes; and fusion in bfloat16, held to a PSNR floor;
-12. kernel_shapes: K1 and K2 timed at every distinct (input, output)
+12. jobs: the job layer at full width on the quality path's flags:
+   ``degrade`` (a real CUDA OOM after the real net in every quality-net
+   call: retries, then degradation to ``fast`` with a seeded ``espcn`` at
+   tile 256 / overlap 16 on the ladder for x0.7 of the scale, still
+   12245x6887, with no memory left allocated), ``transient`` (two
+   failures, then ``quality`` with no degradation, within 1 LSB of the
+   main path), ``cancel`` (``cancel()`` from the SR stage, then the next
+   ``process()`` on the same pipeline), ``resume`` (a tile store in the
+   temporary directory: run 1 dies in blending, run 2 makes no upscale
+   call, run 3 upscales just the tile whose file was deleted; within 2
+   LSB) and ``batch`` (``process_batch`` of three jobs on two workers,
+   the ENTERPRISE job first, each within 1 LSB; beside three back-to-back
+   calls). Each case's runs hold every K1/K2 launch against the plain
+   version, and a run with the counts reset shows both kernels;
+13. kernel_shapes: K1 and K2 timed at every distinct (input, output)
    shape that the warm-up runs launched, each with its launches per
    path, bound and share of the bound.
 
@@ -610,25 +624,41 @@ def xl_weights() -> dict:
     return {("edsr_xl", s): seeded_params("edsr_xl", s, seed=10 + s) for s in (2, 3, 4)}
 
 
+def fast_weights() -> dict:
+    """Seeded espcn, the fast net, at every scale the reference ships."""
+    from srs_tpu_torch.models.registry import seeded_params
+
+    return {("espcn", s): seeded_params("espcn", s, seed=40 + s) for s in (2, 3, 4)}
+
+
+# The full-width quality path's configuration, and the flags that turn
+# routing, selection and QA off (the main path, the providers and the
+# job layer's cases run with them).
+QUALITY_PATH = dict(block_size=512, overlap_ratio=0.2, target_resolution="100MP",
+                    provider="quality", quality_model="edsr_xl", ibp_steps=4, bit_depth=8,
+                    device="cuda")
+QUALITY_FLAGS = dict(auto_route=False, per_scale_selection=False, enable_qa=False)
+
+
 def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, weights=None,
-               prompt=None, **flags):
+               prompt=None, before_run=None, ladder=(3, 3), **flags):
     """One path of ``process()`` on the 720x1280 input to the 100MP preset:
     a warm-up run with every K1/K2 launch held against its plain version,
     then a run with the launch counts set to 0 just before it and read just
     after. ``flags`` override the quality path's configuration; ``weights``
-    default to :func:`xl_weights`. Returns (numbers, pipeline, result, path
-    of the output)."""
+    default to :func:`xl_weights`; ``before_run(pipe)`` runs before each of
+    the two runs; the timed run must serve ``ladder``. Returns (numbers,
+    pipeline, result, path of the output)."""
     from srs_tpu_torch.io.native import read_tiff
     from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
 
-    cfg = dict(block_size=512, overlap_ratio=0.2, target_resolution="100MP",
-               provider="quality", quality_model="edsr_xl", ibp_steps=4, bit_depth=8,
-               device="cuda")
-    cfg.update(flags)
+    cfg = {**QUALITY_PATH, **flags}
     pipe = SuperResolutionPipeline(PipelineConfig(**cfg),
                                    xl_weights() if weights is None else weights)
     path = os.path.join(tmp, f"out_{name}.tiff")
 
+    if before_run is not None:
+        before_run(pipe)
     K.reset_launches()
     with held_against_plain(K) as records:
         warm = pipe.process(image, path, prompt=prompt)
@@ -637,20 +667,25 @@ def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, weights=None,
     os.remove(path)
     held = check_held(K, name, records)
 
+    if before_run is not None:
+        before_run(pipe)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
     K.reset_launches()
     t0 = time.time()
     res = pipe.process(image, path, prompt=prompt)
     elapsed = time.time() - t0
     launches = dict(K.LAUNCHES)
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
     if not res.success:
         fail(f"{name}: process() failed: {res.error_message}")
     for kname, n in launches.items():
         if n <= 0:
             fail(f"{name} never launched kernel {kname}")
-    if pipe.last_run_info["ladder"] != [3, 3]:
-        fail(f"{name}: ladder {pipe.last_run_info['ladder']} != [3, 3]")
+    if pipe.last_run_info["ladder"] != list(ladder):
+        fail(f"{name}: ladder {pipe.last_run_info['ladder']} != {list(ladder)}")
     size = os.path.getsize(path)
     out = read_tiff(path)
     w, h = MAIN_OUT
@@ -668,6 +703,7 @@ def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, weights=None,
         "output_mp": w * h / 1e6,
         "mp_per_s": w * h / 1e6 / elapsed,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "memory_allocated_before_after": [mem_before, mem_after],
         "tiff_bytes": size,
         "ladder": pipe.last_run_info["ladder"],
         "num_tiles": pipe.last_run_info["num_tiles"],
@@ -682,8 +718,7 @@ def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, weights=None,
 def main_path(torch, K, tmp: str, image: np.ndarray):
     """The quality path: routing, per-scale selection and QA off."""
     nums, pipe, _res, _path = drive_path(
-        torch, K, tmp, "main_path", image,
-        auto_route=False, per_scale_selection=False, enable_qa=False)
+        torch, K, tmp, "main_path", image, **QUALITY_FLAGS)
     return nums, pipe
 
 
@@ -1034,9 +1069,7 @@ def provider_cases(ledger: str) -> dict:
                    "food"),
         "hybrid": (dict(provider="hybrid"),
                    {("espcn_polish", 1): seeded_params("espcn_polish", 1, seed=31)}, None),
-        "fast": (dict(provider="fast"),
-                 {("espcn", s): seeded_params("espcn", s, seed=40 + s) for s in (2, 3, 4)},
-                 None),
+        "fast": (dict(provider="fast"), fast_weights(), None),
         "rcan": (dict(quality_model="rcan"),
                  {("rcan", s): seeded_params("rcan", s, seed=50 + s) for s in (2, 3, 4)},
                  None),
@@ -1060,11 +1093,6 @@ def write_fusion_ledger(tmp: str) -> str:
     return ledger
 
 
-# What each provider path runs with the quality path's flags (routing,
-# selection and QA off).
-PROVIDER_FLAGS = dict(auto_route=False, per_scale_selection=False, enable_qa=False)
-
-
 def providers(torch, K, tmp: str, image: np.ndarray, quality_tiff: str):
     """The six serving cases at full width (module docstring, phase 10).
     Returns (numbers, pipeline) per case."""
@@ -1074,7 +1102,7 @@ def providers(torch, K, tmp: str, image: np.ndarray, quality_tiff: str):
     for name, (flags, weights, prompt) in provider_cases(write_fusion_ledger(tmp)).items():
         nums, pipe, _res, path = drive_path(torch, K, tmp, f"provider_{name}", image,
                                             weights=weights, prompt=prompt,
-                                            **{**PROVIDER_FLAGS, **flags})
+                                            **{**QUALITY_FLAGS, **flags})
         info = pipe.last_run_info
         want = expected_members(name)
         if info["step_members"] != [want, want]:
@@ -1118,7 +1146,7 @@ def provider_reference(torch, tmp: str) -> dict:
         for device in ("cuda", "cpu"):
             cfg = PipelineConfig(**{"block_size": 32, "target_resolution": "192x144",
                                     "quality_model": "edsr_xl", "compute_dtype": dtype,
-                                    "device": device, **PROVIDER_FLAGS, **flags})
+                                    "device": device, **QUALITY_FLAGS, **flags})
             path = os.path.join(tmp, f"prov_{name}_{dtype}_{device}.tiff")
             pipe = SuperResolutionPipeline(cfg, weights)
             t0 = time.time()
@@ -1145,6 +1173,348 @@ def provider_reference(torch, tmp: str) -> dict:
             fail(f"provider_reference: {key}: card against CPU {psnr:.2f} dB < "
                  f"{FUSION_BF16_PSNR_FLOOR} dB")
     torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+JOB_CASES = ("degrade", "transient", "cancel", "resume", "batch")
+# memory_allocated() after a failed, degraded or cancelled job may exceed
+# its value before by at most this (a failed attempt's chunk would hold
+# gigabytes).
+LEAK_TOL_BYTES = 4 << 20
+# A resumed TIFF against a fresh run's: the store keeps uint8 tiles
+# (tests/test_pipeline.py:456 holds the reference to the same bound).
+RESUME_LSB = 2
+
+
+def max_lsb(path: str, ref_path: str) -> int:
+    from srs_tpu_torch.io.native import read_tiff
+
+    a, b = read_tiff(path), read_tiff(ref_path)
+    if a.shape != b.shape:
+        fail(f"{path}: shape {a.shape} != {b.shape}")
+    return int(np.abs(a.astype(np.int16) - b).max())
+
+
+def real_upscale(pipe):
+    """The SR module's own ``upscale_tiles``, bound to its instance."""
+    return type(pipe.sr_module).upscale_tiles.__get__(pipe.sr_module)
+
+
+def jobs_degrade(torch, K, tmp: str, image: np.ndarray) -> tuple:
+    """A real CUDA OOM in every quality-net call: the real net runs on the
+    chunk, then the wrapper asks the allocator for twice the card's memory
+    while the chunk's tensors are alive. Retries, then degradation to
+    ``fast`` (seeded espcn) at tile 256 / overlap 16 on the ladder for x0.7
+    of the scale; the TIFF still 12245x6887, and no memory left behind."""
+    from srs_tpu_torch.models.sr_module import scale_ladder
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    ooms = {"n": 0}
+
+    def install(pipe):
+        real = real_upscale(pipe)
+
+        def oom(tiles, scale, provider="quality", **kw):
+            out = real(tiles, scale, provider=provider, **kw)
+            if provider not in ("fast", "bicubic"):
+                ooms["n"] += 1
+                torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+            return out
+
+        pipe.sr_module.upscale_tiles = oom
+
+    w, h = MAIN_OUT
+    want = scale_ladder(max(1.5, 0.7 * max(w / MAIN_W, h / MAIN_H)), trained={2, 3, 4})
+    nums, pipe, _res, path = drive_path(
+        torch, K, tmp, "jobs_degrade", image, weights={**xl_weights(), **fast_weights()},
+        before_run=install, ladder=want, **QUALITY_FLAGS)
+    os.remove(path)
+    info, stats = pipe.last_run_info, pipe.scheduler.get_statistics()
+    devices = [a for a in pipe.scheduler._agents.values() if a.device is not None]
+    errors = {t.error_message.split(":")[0] for t in pipe.scheduler._tasks.values()}
+    if info["provider"] != "fast" or info["sr_attempts"] <= 1 or info["sr_degradations"] < 1 \
+            or info["block"] != 256:
+        fail(f"jobs_degrade: served {info['provider']} at block {info['block']} after "
+             f"{info['sr_attempts']} attempts, {info['sr_degradations']} degradations")
+    if stats["counters"]["retried"] < 1 or stats["counters"]["degraded"] < 1 \
+            or len(devices) != 1 or not stats["agents"]["mesh_backed"] \
+            or "OutOfMemoryError" not in errors:
+        fail(f"jobs_degrade: scheduler {stats}, device agents {len(devices)}, errors {errors}")
+    before, after = nums["memory_allocated_before_after"]
+    if after - before > LEAK_TOL_BYTES:
+        fail(f"jobs_degrade: {after - before} bytes still allocated after the job")
+    nums.update(ooms_raised=ooms["n"], provider=info["provider"], models=info["models"],
+                sr_attempts=info["sr_attempts"], sr_degradations=info["sr_degradations"],
+                layout={"block": info["block"], "overlap": info["overlap"],
+                        "num_tiles": info["num_tiles"]},
+                scheduler_counters=stats["counters"], device_agents=len(devices),
+                task_errors=sorted(errors), leak_bytes=after - before,
+                leak_tolerance_bytes=LEAK_TOL_BYTES)
+    return nums, pipe
+
+
+def jobs_transient(torch, K, tmp: str, image: np.ndarray, main_tiff: str) -> dict:
+    """Two failures, then the real net: served by ``quality`` after three
+    attempts with no degradation, the TIFF within 1 LSB of main_path's."""
+
+    def install(pipe):
+        real, calls = real_upscale(pipe), {"n": 0}
+
+        def transient(tiles, scale, **kw):
+            calls["n"] += 1
+            if calls["n"] <= 2:
+                raise RuntimeError("transient failure")
+            return real(tiles, scale, **kw)
+
+        pipe.sr_module.upscale_tiles = transient
+
+    nums, pipe, _res, path = drive_path(torch, K, tmp, "jobs_transient", image,
+                                        before_run=install, **QUALITY_FLAGS)
+    info, stats = pipe.last_run_info, pipe.scheduler.get_statistics()
+    lsb = max_lsb(path, main_tiff)
+    os.remove(path)
+    if info["provider"] != "quality" or info["sr_attempts"] != 3 \
+            or info["sr_degradations"] != 0 or stats["counters"]["degraded"] != 0 or lsb > 1:
+        fail(f"jobs_transient: served {info['provider']} after {info['sr_attempts']} "
+             f"attempts, {info['sr_degradations']} degradations, {stats['counters']}, "
+             f"{lsb} LSB from main_path")
+    nums.update(sr_attempts=info["sr_attempts"], sr_degradations=info["sr_degradations"],
+                scheduler_counters=stats["counters"], max_lsb_vs_main_path=lsb)
+    return nums
+
+
+def jobs_cancel(torch, K, tmp: str, image: np.ndarray, pipe, main_tiff: str) -> dict:
+    """``cancel()`` from the SR stage on the warm quality-path pipeline: a
+    failed result naming the cancel, no kernel launched (it stops before
+    blending), memory back where it was; then the next ``process()`` on
+    the same pipeline succeeds (the stale cancel is cleared), every launch
+    held against the plain version, the TIFF within 1 LSB of main_path's."""
+    path = os.path.join(tmp, "out_jobs_cancel.tiff")
+    orig = pipe._upscale_batch
+
+    def cancel_during_sr(*args, **kwargs):
+        pipe.cancel()
+        return orig(*args, **kwargs)
+
+    pipe._upscale_batch = cancel_during_sr
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    K.reset_launches()
+    t0 = time.time()
+    try:
+        res = pipe.process(image, path)
+    finally:
+        del pipe._upscale_batch
+    elapsed = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if res.success or "cancelled" not in (res.error_message or "") or os.path.exists(path) \
+            or any(launches.values()) or after - before > LEAK_TOL_BYTES:
+        fail(f"jobs_cancel: success {res.success}, message {res.error_message!r}, "
+             f"launches {launches}, {after - before} bytes left allocated")
+    K.reset_launches()
+    with held_against_plain(K) as records:
+        nxt = pipe.process(image, path)
+    if not nxt.success:
+        fail(f"jobs_cancel: the next process() failed: {nxt.error_message}")
+    held = check_held(K, "jobs_cancel", records)
+    lsb = max_lsb(path, main_tiff)
+    os.remove(path)
+    if lsb > 1:
+        fail(f"jobs_cancel: the next run is {lsb} LSB from main_path")
+    return {"error_message": res.error_message, "cancelled_s": elapsed,
+            "cancelled_stage_times": res.stage_times, "cancelled_launches": launches,
+            "leak_bytes": after - before, "next_run_stage_times": nxt.stage_times,
+            "next_run_max_lsb_vs_main_path": lsb, "launches": dict(K.LAUNCHES),
+            "held_against_plain": held}
+
+
+def jobs_resume(torch, K, tmp: str, image: np.ndarray, main_tiff: str) -> dict:
+    """SR resume from a tile store in the temporary directory, with
+    ``enable_checkpoint`` on: run 1 dies in blending after the SR stage
+    wrote the store; run 2 (a fresh pipeline, once held against the plain
+    versions, once timed) makes no upscale_tiles call; after one tile's npz
+    is deleted, run 3 upscales exactly that tile. Each TIFF within 2 LSB of
+    main_path's (a fresh run of the same job)."""
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+    from srs_tpu_torch.tiling.cache import TileStore
+
+    store_dir = os.path.join(tmp, "tile_store")
+    path = os.path.join(tmp, "out_jobs_resume.tiff")
+    cfg = dict(**QUALITY_PATH, **QUALITY_FLAGS, enable_checkpoint=True)
+    weights = xl_weights()
+
+    def fresh():
+        pipe = SuperResolutionPipeline(PipelineConfig(**cfg), weights)
+        pipe.tiling_module.store = TileStore(store_dir)
+        real, batches = real_upscale(pipe), []
+
+        def counted(tiles, scale, **kw):
+            batches.append(int(tiles.shape[0]))
+            return real(tiles, scale, **kw)
+
+        pipe.sr_module.upscale_tiles = counted
+        return pipe, batches
+
+    def killed(*_args, **_kwargs):
+        raise RuntimeError("killed in blending")
+
+    pipe, batches = fresh()
+    pipe._blend = killed
+    run1 = pipe.process(image, path)
+    ck1 = pipe.last_run_info.get("checkpoint") or {}
+    if run1.success or "killed" not in run1.error_message or not batches \
+            or "write_s" not in ck1:
+        fail(f"jobs_resume: run 1 {run1.success} {run1.error_message!r}, upscale calls "
+             f"{batches}, checkpoint {ck1}")
+    stats = TileStore(store_dir).stats()
+    n_tiles = pipe.last_run_info["num_tiles"]
+    out = {"run1": {"stage_times": run1.stage_times, "upscale_batches": batches,
+                    "write_s": ck1["write_s"], "store_files": stats["l2_files"],
+                    "store_bytes": stats["l2_bytes"],
+                    "uint8_bytes": n_tiles * (512 * 9) ** 2 * 3}}
+
+    pipe, batches = fresh()
+    K.reset_launches()
+    with held_against_plain(K) as records:
+        run2 = pipe.process(image, path)
+    if not run2.success or batches or not pipe.last_run_info["resumed"]:
+        fail(f"jobs_resume: run 2 {run2.error_message}, upscale calls {batches}")
+    held = check_held(K, "jobs_resume", records)
+    lsb2 = max_lsb(path, main_tiff)
+
+    pipe, batches = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.time()
+    run2b = pipe.process(image, path)
+    elapsed = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    if not run2b.success or batches or not all(launches.values()):
+        fail(f"jobs_resume: timed run 2 {run2b.error_message}, upscale calls {batches}, "
+             f"launches {launches}")
+    ck2 = pipe.last_run_info["checkpoint"]
+    w, h = MAIN_OUT
+    out["run2"] = {"stage_times": run2b.stage_times, "elapsed_s": elapsed,
+                   "mp_per_s": w * h / 1e6 / elapsed, "read_s": ck2["read_s"],
+                   "tiles_read": ck2["tiles_read"],
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "max_lsb_vs_main_path": lsb2, "launches": launches}
+
+    os.remove(os.path.join(store_dir, ck1["written_key"], "sr_0.npz"))
+    pipe, batches = fresh()
+    K.reset_launches()
+    with held_against_plain(K) as records:
+        run3 = pipe.process(image, path)
+    ck3 = pipe.last_run_info.get("checkpoint") or {}
+    if not run3.success or batches != [1, 1] or ck3.get("tiles_upscaled") != 1:
+        fail(f"jobs_resume: run 3 {run3.error_message}, upscale batches {batches} (want "
+             f"one tile per ladder step), checkpoint {ck3}")
+    check_held(K, "jobs_resume_partial", records)
+    lsb3 = max_lsb(path, main_tiff)
+    os.remove(path)
+    if max(lsb2, lsb3) > RESUME_LSB:
+        fail(f"jobs_resume: resumed TIFFs {lsb2} and {lsb3} LSB from main_path "
+             f"> {RESUME_LSB}")
+    out["run3"] = {"stage_times": run3.stage_times, "upscale_batches": batches,
+                   "read_s": ck3["read_s"], "write_s": ck3["write_s"],
+                   "max_lsb_vs_main_path": lsb3}
+    out.update(launches=launches, held_against_plain=held, tolerance_lsb=RESUME_LSB)
+    return out
+
+
+def jobs_batch(torch, K, tmp: str, image: np.ndarray, main_tiff: str) -> dict:
+    """``process_batch`` of three quality-path jobs, two workers; the job
+    listed last is ENTERPRISE and must start first. A warm-up batch with
+    every launch held against the plain version, then a timed batch, then
+    three back-to-back ``process()`` calls on the same pipeline; each TIFF
+    within 1 LSB of main_path's."""
+    import threading
+
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+    from srs_tpu_torch.scheduler import VIPLevel
+
+    pipe = SuperResolutionPipeline(PipelineConfig(**QUALITY_PATH, **QUALITY_FLAGS),
+                                   xl_weights())
+    jobs = [{"input": image, "output": os.path.join(tmp, f"out_batch_{i}.tiff")}
+            for i in range(3)]
+    jobs[-1]["vip_level"] = VIPLevel.ENTERPRISE
+    events, lock = [], threading.Lock()
+    process = pipe.process
+
+    def traced(inp, outp, **kw):
+        with lock:
+            events.append(("start", outp, time.time()))
+        res = process(inp, outp, **kw)
+        with lock:
+            events.append(("end", outp, time.time()))
+        return res
+
+    pipe.process = traced
+    K.reset_launches()
+    with held_against_plain(K) as records:
+        warm = pipe.process_batch(jobs, max_concurrent=2)
+    if not all(r.success for r in warm):
+        fail(f"jobs_batch: warm-up batch failed: {[r.error_message for r in warm]}")
+    held = check_held(K, "jobs_batch", records)
+
+    events.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.time()
+    results = pipe.process_batch(jobs, max_concurrent=2)
+    wall = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(r.success for r in results) or pipe._stage_sem is not None:
+        fail(f"jobs_batch: {[r.error_message for r in results]}")
+    starts = sorted((t, outp) for kind, outp, t in events if kind == "start")
+    if starts[0][1] != jobs[-1]["output"]:
+        fail(f"jobs_batch: the ENTERPRISE job did not start first: {starts}")
+    per_job = {os.path.basename(outp): [round(t - t0, 4) for kind, o, t in events if o == outp]
+               for outp in (j["output"] for j in jobs)}
+    lsb = [max_lsb(j["output"], main_tiff) for j in jobs]
+    if max(lsb) > 1:
+        fail(f"jobs_batch: batch TIFFs {lsb} LSB from main_path")
+
+    seq_path = os.path.join(tmp, "out_batch_seq.tiff")
+    t0 = time.time()
+    for job in jobs:
+        res = process(job["input"], seq_path)
+        if not res.success:
+            fail(f"jobs_batch: back-to-back process() failed: {res.error_message}")
+    seq = time.time() - t0
+    for path in [j["output"] for j in jobs] + [seq_path]:
+        os.remove(path)
+    return {"wall_s": wall, "back_to_back_s": seq, "images_per_hour": 3 * 3600 / wall,
+            "back_to_back_images_per_hour": 3 * 3600 / seq, "speedup": seq / wall,
+            "jobs_start_end_s": per_job, "stage_times": [r.stage_times for r in results],
+            "peak_mem_gb": peak / 1e9, "max_lsb_vs_main_path": lsb, "launches": launches,
+            "held_against_plain": held}
+
+
+def job_layer(torch, K, tmp: str, image: np.ndarray, main_pipe, main_tiff: str) -> dict:
+    """The job layer at full width (module docstring, phase 12)."""
+    out, times = {}, {}
+    t0 = time.time()
+    out["degrade"], _ = jobs_degrade(torch, K, tmp, image)
+    times["degrade"] = time.time() - t0
+    t0 = time.time()
+    out["transient"] = jobs_transient(torch, K, tmp, image, main_tiff)
+    times["transient"] = time.time() - t0
+    t0 = time.time()
+    out["cancel"] = jobs_cancel(torch, K, tmp, image, main_pipe, main_tiff)
+    times["cancel"] = time.time() - t0
+    t0 = time.time()
+    out["resume"] = jobs_resume(torch, K, tmp, image, main_tiff)
+    times["resume"] = time.time() - t0
+    t0 = time.time()
+    out["batch"] = jobs_batch(torch, K, tmp, image, main_tiff)
+    times["batch"] = time.time() - t0
+    out["case_seconds"] = times
     return out
 
 
@@ -1294,10 +1664,16 @@ def main() -> int:
         emit("provider_reference", t0, **provider_reference(torch, tmp))
 
         t0 = time.time()
+        job_nums = job_layer(torch, K, tmp, image, main_pipe,
+                        os.path.join(tmp, "out_main_path.tiff"))
+        emit("jobs", t0, **job_nums)
+
+        t0 = time.time()
         held = {"main_path": main["held_against_plain"],
                 "bench_path": bench["held_against_plain"],
                 "cli_path": cli["held_against_plain"],
-                **{f"provider_{k}": v["held_against_plain"] for k, v in prov.items()}}
+                **{f"provider_{k}": v["held_against_plain"] for k, v in prov.items()},
+                **{f"jobs_{k}": job_nums[k]["held_against_plain"] for k in JOB_CASES}}
         shapes = time_kernel_shapes(torch, K, held)
         emit("kernel_shapes", t0, **shapes)
 
@@ -1325,7 +1701,8 @@ def main() -> int:
                                  "main_path": main["launches"][name],
                                  "cli_path": cli["launches"][name],
                                  **{f"provider_{k}": v["launches"][name]
-                                    for k, v in prov.items()}},
+                                    for k, v in prov.items()},
+                                 **{f"jobs_{k}": job_nums[k]["launches"][name] for k in JOB_CASES}},
             "max_abs_err": max(d["max_abs_err"],
                                *(h[name]["max_abs_err"] for h in held.values())),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],

@@ -5,11 +5,13 @@
 
 It takes the reference's flags. Those the port serves build a
 ``PipelineConfig``; ``--device`` (``cuda`` by default, ``cpu`` for the
-plain PyTorch versions) is the port's own. Flags whose feature is not
-ported (``--provider zssr``, ``--zssr-steps``, ``--mesh``, ``--checkpoint``,
-``--profile``) exit with code 2 and say which ROADMAP item holds it. The other
+plain PyTorch versions) is the port's own. ``--checkpoint`` keeps the
+upscaled tiles in the port's tile store (``~/.cache/srs_tpu_torch/tiling``)
+and resumes a re-run of the same job from them. Flags whose feature is not
+ported (``--provider zssr``, ``--zssr-steps``, ``--mesh``, ``--profile``)
+exit with code 2 and say which ROADMAP item holds it. The other
 subcommands of the reference (bench, warmup, webui, train, generate,
-info) are not ported (ROADMAP Queue 1, item 8).
+info) are not ported (ROADMAP Queue 1: items 1, 4, 5 and 7).
 """
 
 from __future__ import annotations
@@ -21,11 +23,12 @@ from typing import List, Optional
 # Flags of the reference whose feature the port has not yet: (the
 # attribute, the value that means "not asked for", what holds it).
 _UNPORTED_FLAGS = (
-    ("zssr_steps", 150, "--zssr-steps: the zssr provider (ROADMAP Queue 1: the training "
-                        "slice)"),
-    ("mesh", None, "--mesh: the parallel/ mesh (ROADMAP Queue 1, item 8)"),
-    ("checkpoint", False, "--checkpoint: SR resume and the tile store (ROADMAP Queue 1, item 6)"),
-    ("profile", None, "--profile: the device trace (ROADMAP Queue 1, item 8)"),
+    ("zssr_steps", 150, "--zssr-steps: the zssr provider (ROADMAP Queue 1, item 1: the "
+                        "training slice)"),
+    ("mesh", None, "--mesh: the parallel/ mesh (ROADMAP Queue 1, item 6: parallel/ on "
+                   "torch.distributed)"),
+    ("profile", None, "--profile: the device trace (ROADMAP Queue 1, item 4: the other "
+                      "subcommands and the device trace)"),
 )
 
 
@@ -52,6 +55,7 @@ def _cmd_process(args: argparse.Namespace) -> int:
             content_aware=args.content_aware,
             per_scale_selection=not args.pin_quality_model,
             self_ensemble=args.self_ensemble,
+            enable_checkpoint=args.checkpoint,
             device=args.device,
         )
     except NotImplementedError as e:
@@ -105,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--color-correction", action="store_true",
                     help="histogram-match output colors to the source")
     pp.add_argument("--checkpoint", action="store_true",
-                    help="persist upscaled tiles for kill-resume (not ported)")
+                    help="persist upscaled tiles in the tile store and resume a killed job "
+                         "from them")
     pp.add_argument("--content-aware", action="store_true",
                     help="seam placement avoids faces/text/salient regions")
     pp.add_argument("--self-ensemble", action="store_true",

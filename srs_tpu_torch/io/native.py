@@ -1,5 +1,5 @@
-"""The streamed TIFF writer, bound with ctypes (port of
-``srs_tpu/io/native.py:145-199``).
+"""The streamed TIFF writer and the content hash, bound with ctypes (port
+of ``srs_tpu/io/native.py:137-199``).
 
 The library is compiled from the repository's ``native/tiffio.cpp`` with
 ``g++ ... -lz`` into the port's build directory (``utils/build.py``); the
@@ -8,6 +8,7 @@ while later bands are still being computed.
 
 :func:`read_tiff` reads back what the writer wrote (classic TIFF, striped,
 uncompressed or deflate, 8/16-bit), with numpy and zlib only.
+:func:`content_hash` is the library's FNV-1a 64-bit hash (``srs_hash64``).
 """
 
 from __future__ import annotations
@@ -18,13 +19,13 @@ import shutil
 import struct
 import threading
 import zlib
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 
 from ..utils.build import PACKAGE_DIR, build_shared
 
-__all__ = ["TiffStreamWriter", "read_tiff", "load_library"]
+__all__ = ["TiffStreamWriter", "read_tiff", "content_hash", "load_library"]
 
 SOURCE = os.path.join(os.path.dirname(PACKAGE_DIR), "native", "tiffio.cpp")
 _lib: Optional[ctypes.CDLL] = None
@@ -50,8 +51,19 @@ def load_library() -> ctypes.CDLL:
             lib.srs_tiff_write_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i64]
             lib.srs_tiff_end.restype = i64
             lib.srs_tiff_end.argtypes = [ctypes.c_void_p]
+            lib.srs_hash64.restype = ctypes.c_uint64
+            lib.srs_hash64.argtypes = [ctypes.c_void_p, i64]
             _lib = lib
     return _lib
+
+
+def content_hash(data: Union[np.ndarray, bytes]) -> str:
+    """FNV-1a 64-bit hash of ``data`` (an array's bytes in C order) as 16
+    hex digits (reference io/native.py:137-142)."""
+    lib = load_library()
+    if isinstance(data, np.ndarray):
+        data = np.ascontiguousarray(data).tobytes()
+    return f"{lib.srs_hash64(data, len(data)):016x}"
 
 
 class TiffStreamWriter:

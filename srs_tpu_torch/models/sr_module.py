@@ -210,6 +210,7 @@ class SuperResolutionModule:
         self._fusion_cache: Dict[int, Optional[List[Tuple[str, float]]]] = {}
         # bfloat16 nets of the SR-gain probe, built from the same weights
         self.probe_nets: Dict = {}
+        self._digests: Dict[Tuple[str, int], str] = {}
 
     # -- nets ---------------------------------------------------------------
     def is_trained(self, name: str, scale: int) -> bool:
@@ -272,6 +273,23 @@ class SuperResolutionModule:
                 device=self.device,
             )
         return self._nets[key]
+
+    def weights_digest(self, name: str, scale: int) -> str:
+        """md5 of the weights of ``(name, scale)`` (each entry's name,
+        dtype and bytes, in key order), or "untrained"; computed once."""
+        key = (name, scale)
+        if key not in self._digests:
+            state = self.weights.get(key)
+            if state is None:
+                self._digests[key] = "untrained"
+            else:
+                h = hashlib.md5()
+                for k in sorted(state):
+                    t = state[k].detach().reshape(-1).contiguous().cpu()
+                    h.update(f"{k}:{t.dtype}:".encode())
+                    h.update(t.view(torch.uint8).numpy().tobytes())
+                self._digests[key] = h.hexdigest()
+        return self._digests[key]
 
     def _net_trained(self, role: str, scale: int, model: Optional[str] = None) -> bool:
         return self.is_trained(*self._key(role, scale, model))

@@ -29,6 +29,7 @@ TF32 off, as the reference's ``Precision.HIGHEST``).
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -55,15 +56,27 @@ __all__ = [
 ]
 
 
+_fp32_lock = threading.Lock()
+_fp32_holders = {"count": 0, "flag": False}
+
+
 @contextlib.contextmanager
 def _full_fp32_matmul():
-    """float32 matrix products without TF32, restoring the caller's flag."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """float32 matrix products without TF32 while any caller, of any
+    thread, is inside (``process_batch`` finalizes one job while the next
+    runs); the last to leave restores the flag the first found."""
+    with _fp32_lock:
+        if _fp32_holders["count"] == 0:
+            _fp32_holders["flag"] = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _fp32_holders["count"] += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _fp32_lock:
+            _fp32_holders["count"] -= 1
+            if _fp32_holders["count"] == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _fp32_holders["flag"]
 
 
 def _v2(n: int) -> int:

@@ -17,7 +17,8 @@ main path moves 1.91 GB, 0.57 ms at 3.35 TB/s).
 Each wrapper takes NHWC float tensors with any leading dimensions:
 
 - a CUDA tensor launches the kernel on the current stream, adds one to
-  ``LAUNCHES[name]``, or raises;
+  ``LAUNCHES[name]`` (under a lock: ``process_batch`` launches from
+  several threads), or raises;
 - a CPU tensor runs the plain PyTorch version (``pyr_down_plain``,
   ``pyr_up_plain``), the port of the XLA path in
   ``srs_tpu/ops/pyramid.py`` (``_pyr_down_xla`` / ``_pyr_up_xla``). The
@@ -61,11 +62,18 @@ LAUNCHES: Dict[str, int] = {"pyr_down": 0, "pyr_up": 0}
 _G = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -196,7 +204,7 @@ def pyr_down(x: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(p.device).cuda_stream
         _check(lib.srs_pyr_down_f32(p.data_ptr(), out.data_ptr(), n, h, w, c,
                                     stream), "pyr_down")
-    LAUNCHES["pyr_down"] += 1
+    _count("pyr_down")
     return out.reshape(*x.shape[:-3], *out.shape[1:])
 
 
@@ -216,5 +224,5 @@ def pyr_up(x: torch.Tensor, dst_hw: Optional[Tuple[int, int]] = None) -> torch.T
         stream = torch.cuda.current_stream(p.device).cuda_stream
         _check(lib.srs_pyr_up_f32(p.data_ptr(), out.data_ptr(), n, mh, mw, nh, nw,
                                   c, stream), "pyr_up")
-    LAUNCHES["pyr_up"] += 1
+    _count("pyr_up")
     return out.reshape(*x.shape[:-3], *out.shape[1:])

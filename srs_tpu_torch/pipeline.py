@@ -8,12 +8,19 @@ providers ``quality``, ``fast``, ``hybrid``, ``fusion`` and ``bicubic``:
    SR-gain probe, which may send the job to the ``shrink`` or ``bicubic``
    ladder with a per-job alpha); choose the ladder from the nets the
    provider serves; mirror-pad and cut one [N, B, B, 3] batch;
-2. super-resolution: the ladder (e.g. [3, 3] for 720p -> 100MP) over the
-   batch, in chunks sized for the card's memory: per step the provider's
-   nets (``models/sr_module.upscale_tiles``: the fusion members' weighted
-   sum, the dihedral self-ensemble, the hybrid polish, IBP for untrained
-   nets), and on the last step the prompt-conditioned polish when the
-   job names a template category;
+2. super-resolution: the tiles are booked as scheduler tasks
+   (``scheduler/scheduler.py``); with ``enable_checkpoint`` the tile
+   store is probed first and a full hit skips the nets, a partial hit
+   upscales only the missing tiles. Otherwise the ladder (e.g. [3, 3] for
+   720p -> 100MP) runs over the batch, in chunks sized for the card's
+   memory: per step the provider's nets (``models/sr_module.upscale_tiles``:
+   the fusion members' weighted sum, the dihedral self-ensemble, the
+   hybrid polish, IBP for untrained nets), and on the last step the
+   prompt-conditioned polish when the job names a template category. A
+   failure (a CUDA OOM, say) goes through the scheduler's ladder
+   (``_run_stage2``): retries, then degradation (tile 256 / overlap 16
+   re-cut on the card, the fallback provider, the net scale x0.7);
+   after a recompute the upscaled tiles are written to the store;
 3. blending: by ``blend_method``: the canvas-pyramid Laplacian blend with
    ramp profiles (level-0 collapse deferred unless a post-pass needs the
    canvas), the same with dense distance weights (``multi_band``),
@@ -30,6 +37,12 @@ providers ``quality``, ``fast``, ``hybrid``, ``fusion`` and ``bicubic``:
    get a full-resolution no-reference panel and the report is written
    beside the output as ``<out>_qa_report.json``.
 
+``cancel()`` stops a job at the next stage boundary (before SR, blending,
+QA and save). ``process_batch`` runs jobs in the scheduler's priority
+order; with ``max_concurrent > 1`` on a thread pool whose device stages
+(SR to QA) one semaphore serializes, so one job's save overlaps the next
+job's SR and blend. Every job shares the card's default stream.
+
 Routing and the probe are best-effort, as in the reference: an exception
 there keeps the configured net and provider, and its text is recorded in
 ``last_run_info["routing"]["errors"]``.
@@ -41,14 +54,18 @@ failure returns ``PipelineResult(success=False, error_message=...)``.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import dataclasses
+import hashlib
 import json
 import logging
 import os
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,19 +84,21 @@ from .ops.blend import (
 )
 from .ops.color import color_correction
 from .ops.seam import detect_seams, repair_seams
-from .ops.tiles import extract_tiles
+from .ops.tiles import extract_tiles, pad_image
 from .ops.weights import layout_weight_profiles, layout_weights
 from .qa import noref
 from .qa.module import QualityAssessmentModule
 from .qa.niqe import brisque_scores, niqe_scores
+from .scheduler.scheduler import AgentScheduler, Task, TaskStatus, VIPLevel
 from .tiling.content import ContentAnalyzer
 from .tiling.content_layout import content_aware_weight_profiles, content_aware_weights
+from .tiling.geometry import compute_layout
 from .tiling.tiling import TilingModule
 from .utils.device import resolve_device
 
 logger = logging.getLogger("srs_tpu_torch.pipeline")
 
-__all__ = ["PipelineConfig", "PipelineResult", "SuperResolutionPipeline"]
+__all__ = ["PipelineCancelled", "PipelineConfig", "PipelineResult", "SuperResolutionPipeline"]
 
 # Bytes the SR ladder may hold per chunk. The reference caps a chunk at
 # 7e9 bytes for a 16 GB TPU; an 80 GB card takes the 100MP preset's six
@@ -107,7 +126,13 @@ _NOT_PORTED = {
     "sr_gain_route": ("shrink", "bicubic"),
 }
 # zssr fine-tunes the net on each input: it comes with the training slice.
-_TRAINING_SLICE = "zssr trains the net per image (ROADMAP Queue 1: the training slice)"
+_TRAINING_SLICE = "zssr trains the net per image (ROADMAP Queue 1, item 1: the training slice)"
+_ROI = ("roi_regions: commercial QA of regions of interest is not ported yet "
+        "(ROADMAP Queue 1, item 2: commercial QA and roi_regions)")
+
+
+class PipelineCancelled(RuntimeError):
+    """Raised at a stage boundary after ``SuperResolutionPipeline.cancel()``."""
 
 
 @dataclass
@@ -151,6 +176,13 @@ class PipelineConfig:
     ibp_steps: int = 8  # back-projection steps; only untrained nets use them
     content_aware: bool = False  # seams avoid faces, text and salient regions
     bit_depth: int = 8  # 8 or 16 (16-bit needs a TIFF output)
+    # The scheduler's agent pool and its dispatch limit.
+    max_agents: int = 60
+    max_concurrent: int = 30
+    # Keep the SR stage's upscaled tiles (uint8) in the tile store and
+    # resume from them on a re-run; the key holds every knob that changes
+    # them.
+    enable_checkpoint: bool = False
     enable_seam_repair: bool = False  # post-blend seam detection and repair
     enable_color_correction: bool = False  # histogram-match the output to the input
     seam_threshold: float = 0.95
@@ -240,7 +272,41 @@ class SuperResolutionPipeline:
         if self.config.enable_qa:
             self.quality_module = QualityAssessmentModule(
                 QualityAssessmentConfig(), self.device, LPIPSMetric(lpips_params, self.device))
+        # The scheduler books each job's tiles as tasks and drives the SR
+        # stage's retry and degradation ladder; its agents are the CUDA
+        # devices (on the CPU, the one device the pipeline runs on).
+        self.scheduler = AgentScheduler(max_agents=self.config.max_agents,
+                                        max_concurrent=self.config.max_concurrent,
+                                        initial_agents=0)
+        self.scheduler.attach_mesh_devices(None if self.device.type == "cuda" else [self.device])
+        self._sched_tlock = threading.Lock()
+        # Checked at every stage boundary; process_batch shares it between
+        # its workers.
+        self._cancel_event = threading.Event()
+        # process_batch: serializes the device stages (SR to QA) of its jobs.
+        self._stage_sem: Optional[threading.Semaphore] = None
         self.last_run_info: Dict[str, Any] = {}
+
+    def cancel(self) -> None:
+        """Ask the running job(s) to stop: ``process()`` returns a failed
+        result at the next stage boundary."""
+        self._cancel_event.set()
+
+    def _check_cancel(self, stage: str) -> None:
+        if self._cancel_event.is_set():
+            raise PipelineCancelled(f"cancelled before {stage}")
+
+    def __enter__(self) -> "SuperResolutionPipeline":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        pass
+
+    async def __aenter__(self) -> "SuperResolutionPipeline":
+        return self
+
+    async def __aexit__(self, exc_type, exc, tb) -> None:
+        await self.scheduler.stop()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -267,12 +333,15 @@ class SuperResolutionPipeline:
             tw = int(th * aspect)
         return (tw, th)
 
-    def _trained_scales(self, model: Optional[str] = None) -> Optional[set]:
-        """Scales whose net the configured provider serves trained; None (no
-        preference) for ``bicubic`` (reference pipeline.py:288-299)."""
-        if self.config.provider == "bicubic":
+    def _trained_scales(self, provider: Optional[str] = None,
+                        model: Optional[str] = None) -> Optional[set]:
+        """Scales whose net ``provider`` (the configured one by default)
+        serves trained; None (no preference) for ``bicubic`` (reference
+        pipeline.py:288-299)."""
+        provider = provider or self.config.provider
+        if provider == "bicubic":
             return None
-        return self.sr_module.trained_scales(self.config.provider, model=model)
+        return self.sr_module.trained_scales(provider, model=model)
 
     def _route(self, image: torch.Tensor, scale_total: float):
         """Degradation routing, the ladder, and the SR-gain probe
@@ -294,12 +363,12 @@ class SuperResolutionPipeline:
                 routed_model = None
                 info["errors"].append(f"routing: {type(e).__name__}: {e}")
                 logger.warning("degradation routing failed: %s", e)
-        ladder = scale_ladder(scale_total, trained=self._trained_scales(routed_model))
+        ladder = scale_ladder(scale_total, trained=self._trained_scales(model=routed_model))
         routed_provider: Optional[str] = None
         alpha: Optional[float] = None
         if cfg.auto_route and routed and routed_model is None and ladder:
             try:
-                probe_model = sr.resolve_ladder_models([int(ladder[0])], cfg.provider)[0]
+                probe_model = self._ladder_models([int(ladder[0])])[0]
                 args = dict(weights=sr.weights, device=self.device, nets=sr.probe_nets)
                 sr_gain, shrink_alpha = None, None
                 if cfg.sr_gain_route == "shrink":
@@ -335,17 +404,19 @@ class SuperResolutionPipeline:
                        alpha: Optional[float] = None,
                        category: Optional[str] = None) -> torch.Tensor:
         """The ladder over the tile batch, chunked to bound memory: each
-        step through ``upscale_tiles``, with ``category``'s conditioned
-        polish on the last step (on the tiles when the ladder is empty).
-        ``alpha`` is this job's shrinkage (the shrink provider only).
-
-        The reference runs its multi-pass providers (fusion, the
-        self-ensemble) through a staged program when every step is trained
-        (pipeline.py:471-540), a workaround for the TPU compiler; its
-        result is ``upscale_tiles``' step by step, which the port runs."""
-        provider = provider or self.config.provider
+        step through ``upscale_tiles`` with the provider
+        ``_serving_provider`` gives, with ``category``'s conditioned polish
+        on the last step (on the tiles when the ladder is empty).
+        ``alpha`` is this job's shrinkage (the shrink provider only)."""
         sr = self.sr_module
-        sr.build_nets(ladder, provider, model, category)  # before the first chunk
+        # The provider's own nets are built before the staged rule reads
+        # them, as in the reference (pipeline.py:337-354), and the serving
+        # provider's before the first chunk.
+        provider = provider or self.config.provider
+        sr.build_nets(ladder, provider, model, category)
+        provider = self._serving_provider(ladder, provider, model,
+                                          square=tiles.shape[1] == tiles.shape[2])
+        sr.build_nets(ladder, provider, model, category)
         conditioned = sr.conditions(category)
         n = int(tiles.shape[0])
         final_block = int(tiles.shape[1]) * int(np.prod(ladder)) if ladder else int(tiles.shape[1])
@@ -371,34 +442,281 @@ class SuperResolutionPipeline:
             outs.append(cur)
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
-    def _run_info(self, ladder, layout, routed_provider, routed_model, alpha, route_info,
-                  category) -> Dict[str, Any]:
-        """What the SR stage served (reference pipeline.py:1108-1176): the
-        provider (``fusion`` only where a step fused its members; a fusion
-        that resolved no members at any step served ``quality`` and says
-        so), the net of each step, and per step the [net, passes] it ran
-        (8 passes for a dihedral "+" pass; the hybrid polish as
-        ``espcn_polish``)."""
+    def _step_trained(self, scale: int, provider: str, model: Optional[str]) -> bool:
+        """What serves the step in the reference's staged program is
+        trained: its resolved fusion members, or the resolved quality net
+        (reference pipeline.py:399-406). The reference reads the quality
+        net's state from its cache of built nets (sr_module.py:281-285), so
+        a quality net counts once it has been built on this module: always
+        for the quality-tier providers, whose nets are built first, and for
+        ``fast`` only after a quality-tier attempt degraded to it."""
+        sr = self.sr_module
+        if provider == "fusion" and model is None and sr._fusion_for(int(scale)) is not None:
+            return True
+        key = sr._key("quality", int(scale), model)
+        return key in sr._nets and sr.is_trained(*key)
+
+    def _serving_provider(self, ladder: Sequence[int], provider: str, model: Optional[str],
+                          square: bool = True) -> str:
+        """The provider ``upscale_tiles`` runs for ``provider``. The
+        reference sends square tiles to its staged multi-pass program when
+        the ladder is not empty, the provider is not bicubic, zssr or
+        shrink, the self-ensemble is on or the provider is fusion with no
+        pinned model, and every step is trained (pipeline.py:395-415;
+        ``_step_trained``). That program serves the fusion members, else
+        ``model`` or the resolved quality net, each ensembled when the
+        self-ensemble is on or its name ends in "+", then clips; the
+        conditioned polish follows the ladder, with no IBP and no hybrid
+        polish (pipeline.py:520-539): ``upscale_tiles`` with ``fusion`` (no
+        pinned model) or ``quality`` serves the same. Its chunking and
+        7e9-byte cap bend around the TPU compiler and are not ported.
+        Otherwise ``provider`` itself."""
+        if (square and ladder and provider not in ("bicubic", "zssr", "shrink")
+                and (self.config.self_ensemble or (provider == "fusion" and model is None))
+                and all(self._step_trained(s, provider, model) for s in ladder)):
+            return "fusion" if provider == "fusion" and model is None else "quality"
+        return provider
+
+    # -- stage 2 with failure recovery (reference pipeline.py:542-623) ------
+    # Where a failed provider degrades to; any other to bicubic.
+    _FALLBACK_PROVIDERS = {"quality": "fast", "hybrid": "fast", "fusion": "fast",
+                           "fast": "bicubic"}
+
+    def _run_stage2(self, image_dev: torch.Tensor, tiles: torch.Tensor, ladder: List[int],
+                    layout, tasks: List[Task], provider: str, model: Optional[str],
+                    alpha: Optional[float], category: Optional[str], max_attempts: int = 10):
+        """The SR batch under the scheduler's retry -> degradation ladder
+        (reference pipeline.py:547-623). A failed attempt (a CUDA OOM, say)
+        reports every task to ``handle_failure``: the first
+        ``max_retries`` failures re-run unchanged; then
+        ``_apply_degradation`` rewrites the tasks and the batch is re-cut
+        on the card at the degraded tile size and overlap (256/16), served
+        by the fallback provider without the routed model, on the ladder
+        for the degraded scale (x0.7, floor 1.5; the banded finalize still
+        reaches the target size). Returns (up_tiles, layout, ladder,
+        provider, model, attempts, degradations).
+
+        A failed attempt's tensors are held by its traceback only, so they
+        are freed when the ``except`` block is left, before the failure is
+        booked and the next attempt starts. The allocator has already
+        returned its cached blocks to the card before it raised an OOM,
+        so no ``empty_cache`` runs between attempts."""
+        degradations = 0
+        for attempt in range(max_attempts):
+            try:
+                up_tiles = self._upscale_batch(tiles, ladder, provider, model, alpha, category)
+                self._sync()
+                return up_tiles, layout, ladder, provider, model, attempt + 1, degradations
+            except Exception as e:  # noqa: BLE001 - any device failure enters the ladder
+                if attempt == max_attempts - 1:
+                    raise
+                error = f"{type(e).__name__}: {e}"
+            logger.warning("SR batch failed (attempt %d): %s", attempt + 1, error)
+            self._run_async(self._report_failure(tasks, error))
+            degraded = [t for t in tasks if t.status == TaskStatus.DEGRADED]
+            if degraded and degradations < len(self._FALLBACK_PROVIDERS):
+                degradations += 1
+                task_cfg = degraded[0].tile_config
+                block = int(task_cfg.get("tile_size", 256))
+                overlap_px = int(task_cfg.get("overlap", 16))
+                if task_cfg.get("use_fallback_engine"):
+                    provider = self._FALLBACK_PROVIDERS.get(provider, "bicubic")
+                    model = None  # the routed net is a quality-tier pick
+                ladder = scale_ladder(float(degraded[0].scale_factor),
+                                      trained=self._trained_scales(provider))
+                layout = compute_layout(int(image_dev.shape[1]), int(image_dev.shape[0]), block,
+                                        overlap_px / max(block, 1),
+                                        step_multiple=self.tiling_module.step_multiple)
+                tiles = extract_tiles(
+                    pad_image(image_dev, layout, self.tiling_module.padding_mode.value), layout)
+                logger.warning("degraded: tile %d/%d, provider %s, ladder %s",
+                               block, overlap_px, provider, ladder)
+        raise AssertionError("unreachable")  # the last attempt re-raises
+
+    async def _report_failure(self, tasks: List[Task], error: str) -> None:
+        for t in tasks:
+            await self.scheduler.handle_failure(t, error)
+
+    # -- scheduler bookkeeping (reference pipeline.py:848-894) --------------
+    def _book_tasks(self, n: int, output_path: str, scale: float) -> List[Task]:
+        tasks = [Task(input_path=f"tile_{i}", output_path=output_path, scale_factor=scale,
+                      has_edge_dependency=True) for i in range(n)]
+
+        async def run():
+            for t in tasks:
+                await self.scheduler.submit_task(t)
+            await self.scheduler._dispatch_tasks()
+
+        self._run_async(run())
+        return tasks
+
+    def _book_done(self, tasks: List[Task]) -> None:
+        async def run():
+            for t in tasks:
+                await self.scheduler.collect_result(
+                    t.task_id, {"output_path": "", "width": 0, "height": 0, "color_mode": "RGB"})
+
+        self._run_async(run())
+
+    def _run_async(self, coro) -> None:
+        """Run ``coro`` to its end, or schedule it when called inside a
+        running event loop (as the reference does)."""
+        try:
+            asyncio.get_running_loop()
+        except RuntimeError:
+            # One loop at a time across process_batch's workers: each
+            # asyncio.run makes a loop, and the scheduler's asyncio locks
+            # must not be awaited from two loops at once.
+            with self._sched_tlock:
+                asyncio.run(coro)
+            return
+        asyncio.ensure_future(coro)
+
+    # -- SR resume (reference pipeline.py:719-780) --------------------------
+    def _ladder_models(self, ladder: Sequence[int], model: Optional[str] = None,
+                       provider: Optional[str] = None) -> List[str]:
+        """The net each ladder step serves for ``provider`` (the configured
+        one by default), per-scale selection included."""
+        return self.sr_module.resolve_ladder_models(ladder, provider or self.config.provider,
+                                                    model)
+
+    def _resume_key(self, image_hash: str, ladder: Sequence[int], layout, provider: str,
+                    model: Optional[str], category: Optional[str],
+                    alpha: Optional[float]) -> Optional[str]:
+        """Content-addressed key of the job's upscaled tiles in the store;
+        None with ``enable_checkpoint`` off. Every knob that changes the
+        SR stage's output changes it: the input, the provider, ladder,
+        layout and padding, IBP steps, dtypes, the category and the
+        conditioned polish's weights, per step each net with its passes and
+        weights (per-scale selection, routing, the fusion members and
+        their weights, the self-ensemble, the hybrid polish), and this
+        job's alpha on the shrink route. The reference keys on net names
+        (its weights are its packaged checkpoints) and on knobs the port
+        lacks (zssr and seedream steps)."""
+        if not self.config.enable_checkpoint:
+            return None
         cfg, sr = self.config, self.sr_module
-        asked = routed_provider or cfg.provider
-        served = asked
+        serving = self._serving_provider(ladder, provider, model)
+        steps = []
+        for s in ladder:
+            members = [[name, passes,
+                        sr.weights_digest(name, 1 if name == "espcn_polish" else int(s))]
+                       for name, passes in sr.step_members(int(s), serving, model)]
+            fused = sr._fusion_for(int(s)) if serving == "fusion" and model is None else None
+            steps.append([members, fused])
+        sig = [image_hash, provider, [int(s) for s in ladder], cfg.ibp_steps, int(layout.block),
+               int(layout.overlap), cfg.padding_mode, cfg.compute_dtype, cfg.params_dtype,
+               category, sr.weights_digest("cond_polish", 1) if sr.conditions(category) else None,
+               steps, float(alpha) if provider == "shrink" and alpha is not None else None]
+        return "sr-" + hashlib.md5(json.dumps(sig).encode()).hexdigest()
+
+    @staticmethod
+    def _each(fn: Callable[[int], Any], n: int) -> List[Any]:
+        """``[fn(i) for i in range(n)]`` on a thread pool: the store's zlib
+        work and file IO release the interpreter lock."""
+        with ThreadPoolExecutor(max(1, min(n, os.cpu_count() or 1))) as pool:
+            return list(pool.map(fn, range(n)))
+
+    def _probe_resume(self, key: Optional[str], n: int) -> Optional[Dict[int, np.ndarray]]:
+        """{tile index: uint8 upscaled tile} of the tiles the store holds
+        under ``key``; None without a key."""
+        if key is None:
+            return None
+        store = self.tiling_module.store
+        found = self._each(lambda i: store.get(key, f"sr_{i}"), n)
+        return {i: data for i, data in enumerate(found) if data is not None}
+
+    def _checkpoint_sr(self, key: Optional[str], up_tiles: torch.Tensor) -> None:
+        """Store the upscaled batch as uint8, ``clamp(round(x), 0, 255)``
+        (round half to even, as the reference's ``rint``); the save
+        quantizes to 8 or 16 bits anyway."""
+        if key is None:
+            return
+        store = self.tiling_module.store
+        up = torch.round(up_tiles).clamp_(0, 255).to(torch.uint8).cpu().numpy()
+        self._each(lambda i: store.put(key, f"sr_{i}", up[i]), up.shape[0])
+
+    def _super_resolve(self, image_dev: torch.Tensor, tiles: torch.Tensor, ladder: List[int],
+                       layout, provider: str, model: Optional[str], alpha: Optional[float],
+                       category: Optional[str], image_hash: Optional[str], tasks: List[Task]):
+        """The SR stage's three resume branches (reference
+        pipeline.py:1048-1105): every tile in the store (no net runs), some
+        (only the missing tiles are upscaled), or none (``_run_stage2``);
+        after a recompute the batch is written to the store. Returns
+        (up_tiles, layout, ladder, provider, model, record) with the record
+        of attempts, degradations and the store's work."""
+        n = layout.num_tiles
+        key = self._resume_key(image_hash, ladder, layout, provider, model, category, alpha)
+        t0 = time.time()
+        cached = self._probe_resume(key, n)
+        record: Dict[str, Any] = {"sr_attempts": 1, "sr_degradations": 0, "resumed": False}
+        if cached is not None:
+            record["checkpoint"] = {"key": key, "tiles_read": len(cached),
+                                    "read_s": time.time() - t0}
+        if cached and len(cached) == n:
+            up_tiles = torch.from_numpy(np.stack([cached[i] for i in range(n)])).to(
+                self.device).float()
+            record["resumed"] = True
+            logger.info("resumed all %d upscaled tiles from the store", n)
+            return up_tiles, layout, ladder, provider, model, record
+        up_tiles = None
+        if cached:
+            missing = [i for i in range(n) if i not in cached]
+            try:
+                idx = torch.tensor(missing, device=tiles.device)
+                up_missing = self._upscale_batch(tiles.index_select(0, idx), ladder, provider,
+                                                 model, alpha, category)
+                up_tiles = up_missing.new_empty((n,) + tuple(up_missing.shape[1:]))
+                up_tiles[idx] = up_missing
+                for i, data in cached.items():
+                    up_tiles[i] = torch.from_numpy(data).to(self.device)
+                record["checkpoint"]["tiles_upscaled"] = len(missing)
+                logger.info("resumed %d/%d tiles; upscaled %d", len(cached), n, len(missing))
+            except Exception:  # noqa: BLE001 - partial resume is best-effort
+                logger.warning("partial resume failed; recomputing the batch", exc_info=True)
+                up_tiles = None
+        if up_tiles is None:
+            up_tiles, layout, ladder, provider, model, attempts, degradations = \
+                self._run_stage2(image_dev, tiles, ladder, layout, tasks, provider, model,
+                                 alpha, category)
+            record.update(sr_attempts=attempts, sr_degradations=degradations)
+        if key is not None:
+            t0 = time.time()
+            key = self._resume_key(image_hash, ladder, layout, provider, model, category, alpha)
+            self._checkpoint_sr(key, up_tiles)
+            record["checkpoint"].update(written_key=key, write_s=time.time() - t0)
+        return up_tiles, layout, ladder, provider, model, record
+
+    def _run_info(self, ladder, layout, provider, asked, model, alpha, route_info,
+                  category) -> Dict[str, Any]:
+        """What the SR stage served (reference pipeline.py:1108-1176):
+        ``provider`` is the one that ran it (after routing and any
+        degradation; ``asked`` the one routing chose; ``fusion`` only where
+        a step fused its members: a fusion that resolved no members at any
+        step served ``quality`` and says so), the net of each step, and per
+        step the [net, passes] it ran (8 passes for a dihedral "+" pass; the
+        hybrid polish as ``espcn_polish``), the nets of the staged rule's
+        provider where it applies (``_serving_provider``)."""
+        cfg, sr = self.config, self.sr_module
+        served = provider
         step_models = step_members = None
-        model_used = routed_model
-        if asked != "bicubic":
-            if asked == "fusion" and (routed_model is not None
-                                      or not any(sr._fusion_for(int(s)) for s in ladder)):
+        model_used = model
+        if provider != "bicubic":
+            if provider == "fusion" and (model is not None
+                                         or not any(sr._fusion_for(int(s)) for s in ladder)):
                 served = "quality"
-            step_models = sr.resolve_ladder_models(ladder, served, routed_model)
-            step_members = [[list(m) for m in sr.step_members(int(s), served, routed_model)]
+            serving = self._serving_provider(ladder, served, model)
+            step_models = self._ladder_models(ladder, model, serving)
+            step_members = [[list(m) for m in sr.step_members(int(s), serving, model)]
                             for s in ladder]
-            model_used = routed_model or (step_models[0] if step_models else
-                                          cfg.fast_model if served == "fast"
-                                          else cfg.quality_model)
-        route_info.update(provider=served, model=routed_model, ladder_models=step_models)
+            model_used = model or (step_models[0] if step_models else
+                                   cfg.fast_model if served == "fast" else cfg.quality_model)
+        route_info.update(provider=served, model=model, ladder_models=step_models)
         return {
             "ladder": list(ladder),
             "num_tiles": int(layout.num_tiles),
             "block": int(layout.block),
+            "overlap": int(layout.overlap),
             "provider": served,
             "requested_provider": asked,
             "model": model_used,
@@ -551,6 +869,7 @@ class SuperResolutionPipeline:
         input_path: Union[str, np.ndarray],
         output_path: str,
         prompt: Optional[str] = None,
+        roi_regions: Optional[List[Dict[str, Any]]] = None,
     ) -> PipelineResult:
         """Super-resolve one image (a path or an (H, W, 3) array in
         [0, 255]) to ``target_resolution`` and write ``output_path`` (TIFF,
@@ -558,14 +877,23 @@ class SuperResolutionPipeline:
         with QA on. A ``prompt`` that names a template category
         (``models/prompts.py``) steers this job's conditioned polish in
         place of ``prompt_category``; other prompts change nothing
-        (reference pipeline.py:896-912)."""
+        (reference pipeline.py:896-912). ``roi_regions`` raises
+        ``NotImplementedError``: commercial QA is not ported yet."""
+        if roi_regions:
+            raise NotImplementedError(_ROI)
         start = time.time()
         stage_times: Dict[str, float] = {}
         category = (prompt if prompt in PromptTemplateManager.TEMPLATES
                     else self.config.prompt_category)
+        if self._stage_sem is None:
+            # Inside a batch the workers share the event: process_batch
+            # clears it once, so a cancel() during the batch stops every job.
+            self._cancel_event.clear()
         try:
-            with torch.inference_mode():
-                return self._process(input_path, output_path, start, stage_times, category)
+            # inference_mode is per thread: each batch worker enters its own.
+            with torch.inference_mode(), contextlib.ExitStack() as device_stages:
+                return self._process(input_path, output_path, start, stage_times, category,
+                                     device_stages)
         except Exception as e:  # noqa: BLE001 - parity: never raise
             logger.exception("pipeline failed")
             return PipelineResult(
@@ -575,6 +903,48 @@ class SuperResolutionPipeline:
                 quality_report=None, error_message=f"{type(e).__name__}: {e}",
                 stage_times=stage_times,
             )
+
+    def process_batch(self, jobs: List[Dict[str, Any]],
+                      max_concurrent: int = 2) -> List[PipelineResult]:
+        """Process several images in the scheduler's priority order
+        (reference pipeline.py:1394-1454); results in the jobs' order.
+
+        Each job: ``{"input": path or array, "output": path}``, optionally
+        ``"vip_level"`` (``VIPLevel`` or its int) and ``"prompt"``; a job
+        with ``"roi_regions"`` raises ``NotImplementedError`` before any job
+        runs. Jobs are ordered by ``Task.calculate_priority`` (VIP level,
+        then the order given: one submit time for the whole batch). With
+        ``max_concurrent > 1`` they run on that many worker threads, and a
+        semaphore lets one job at a time through the device stages (SR to
+        QA), so one job's save overlaps the next one's SR and blend."""
+        for job in jobs:
+            if job.get("roi_regions"):
+                raise NotImplementedError(_ROI)
+        submitted = time.time()
+
+        def priority(job: Dict[str, Any]) -> float:
+            vip = job.get("vip_level", VIPLevel.NORMAL)
+            vip = VIPLevel(vip) if isinstance(vip, int) else vip
+            return Task.calculate_priority(vip, bool(job.get("roi_regions")), False, submitted)
+
+        ordered = sorted(enumerate(jobs), key=lambda it: priority(it[1]))
+        results: List[Optional[PipelineResult]] = [None] * len(jobs)
+        if max_concurrent <= 1 or len(jobs) < 2:
+            for idx, job in ordered:
+                results[idx] = self.process(job["input"], job["output"], prompt=job.get("prompt"))
+            return results  # type: ignore[return-value]
+        self._cancel_event.clear()  # once per batch, not per job
+        self._stage_sem = threading.Semaphore(1)
+        try:
+            with ThreadPoolExecutor(max_workers=max_concurrent) as pool:
+                futures = [(idx, pool.submit(self.process, job["input"], job["output"],
+                                             prompt=job.get("prompt")))
+                           for idx, job in ordered]
+                for idx, fut in futures:
+                    results[idx] = fut.result()
+        finally:
+            self._stage_sem = None
+        return results  # type: ignore[return-value]
 
     @contextlib.contextmanager
     def _stage(self, name: str, stage_times: Dict[str, float]):
@@ -610,7 +980,7 @@ class SuperResolutionPipeline:
             split["close"] = time.time() - ts
 
     def _process(self, input_path, output_path, start, stage_times,
-                 category: Optional[str]) -> PipelineResult:
+                 category: Optional[str], device_stages: contextlib.ExitStack) -> PipelineResult:
         cfg = self.config
         with self._stage("tiling", stage_times):
             image = (
@@ -619,20 +989,36 @@ class SuperResolutionPipeline:
             )
             h, w = image.shape[:2]
             tw, th = self._calculate_target_size((w, h), self.config.target_resolution)
+            scale_total = max(tw / w, th / h)
             # One upload: routing, tiling and QA read this copy.
             image_dev = torch.from_numpy(np.ascontiguousarray(image, np.float32)).to(self.device)
             ladder, routed_model, routed_provider, alpha, route_info = self._route(
-                image_dev, max(tw / w, th / h))
+                image_dev, scale_total)
             layout, tiles = self.tiling_module.split_to_batch(image_dev, self.device)
+            image_hash = None
+            if cfg.enable_checkpoint:
+                image_hash = self.tiling_module.compute_image_hash(
+                    input_path if isinstance(input_path, str) else image)
 
+        self._check_cancel("super_resolution")
+        if self._stage_sem is not None:
+            sem = self._stage_sem
+            sem.acquire()
+            device_stages.callback(sem.release)
+        asked = routed_provider or cfg.provider
         with self._stage("super_resolution", stage_times):
-            up_tiles = self._upscale_batch(tiles, ladder, routed_provider, routed_model, alpha,
-                                           category)
+            tasks = self._book_tasks(layout.num_tiles, output_path, scale_total)
+            up_tiles, layout, ladder, served, model, record = self._super_resolve(
+                image_dev, tiles, ladder, layout, asked, routed_model, alpha, category,
+                image_hash, tasks)
             del tiles
+            self._book_done(tasks)
         net_scale = int(np.prod(ladder)) if ladder else 1
-        self.last_run_info = self._run_info(ladder, layout, routed_provider, routed_model,
-                                            alpha, route_info, category)
+        info = self._run_info(ladder, layout, served, asked, model, alpha, route_info, category)
+        info.update(record)
+        self.last_run_info = info
 
+        self._check_cancel("blending")
         with self._stage("blending", stage_times):
             out_layout = layout.scaled(net_scale)
             # The blend leaves up_tiles as they are: seam repair reads them after.
@@ -658,6 +1044,7 @@ class SuperResolutionPipeline:
             split["finalize"] = time.time() - t0
             return bands
 
+        self._check_cancel("quality_assessment")
         quality_report: Optional[Dict[str, Any]] = None
         bands = None
         if self.quality_module is not None:
@@ -669,7 +1056,11 @@ class SuperResolutionPipeline:
                 fr = self.quality_module.evaluate_full_reference(image_dev, small)
                 nr = self.quality_module.evaluate_no_reference(small)
                 quality_report = {**fr, **nr}
+        # The device stages are done: the next job of a batch may start its
+        # SR. (With QA off this job's banded finalize runs in the save stage.)
+        device_stages.close()
 
+        self._check_cancel("save")
         with self._stage("save", stage_times):
             if bands is None:
                 bands = save_bands()
@@ -695,7 +1086,7 @@ class SuperResolutionPipeline:
                 with open(report_path, "w", encoding="utf-8") as f:
                     json.dump(quality_report, f, indent=2, ensure_ascii=False)
                 split["fullres_qa"] = time.time() - ts
-        self.last_run_info["save_breakdown"] = split
+        info["save_breakdown"] = split
 
         return PipelineResult(
             success=True,

@@ -1,24 +1,43 @@
-"""Tile-batch split (port of ``srs_tpu/tiling/tiling.py:123-194``).
+"""Tile-batch split and the tile store (port of ``srs_tpu/tiling/tiling.py``:
+43-121, 123-194, 148-166 and 255-340).
 
-Only the fast path the pipeline runs: :meth:`TilingModule.split_to_batch`
-returns the layout and one [N, B, B, C] float32 batch on the device
-asked for. The reference's ``Tile``-object API, cache and checkpointing are
-not ported.
+- :meth:`TilingModule.split_to_batch` returns the layout and one
+  [N, B, B, C] float32 batch on the device asked for: the path the
+  pipeline runs.
+- The store half: ``TileStatus``, ``CacheLevel``, ``TileMetadata``,
+  ``Tile``, the module's ``store`` (``cache.TileStore``, under
+  ``TilingConfig.cache_dir``), ``compute_image_hash``, ``get_tile``,
+  ``load_tile_streaming``, ``save_tile_cache``, ``load_tile_cache``,
+  ``get_cache_stats``, ``save_checkpoint`` and ``restore_from_cache``.
+  Checkpoints and tiles keep the reference's files, so either package
+  restores what the other saved.
+
+The reference's ``split_image`` and ``merge_tiles`` (and the content
+analyzer they use) wait for the module-level API (ROADMAP Queue 1); until
+then a tile enters the registry through ``restore_from_cache``.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
+import threading
+from dataclasses import dataclass, field
 from enum import Enum
-from typing import Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..config import TilingConfig
+from ..io.image import load_image
 from ..ops.tiles import extract_tiles, pad_image
 from ..utils.device import resolve_device
+from .cache import TileStore
 from .geometry import TileLayout, compute_layout
 
-__all__ = ["PaddingMode", "TilingModule"]
+__all__ = ["PaddingMode", "TileStatus", "CacheLevel", "TileMetadata", "Tile", "TilingModule"]
 
 
 class PaddingMode(Enum):
@@ -30,8 +49,80 @@ class PaddingMode(Enum):
     CONSTANT = "constant"
 
 
+class TileStatus(Enum):
+    """(reference tiling.py:48-55)."""
+
+    PENDING = "pending"
+    PROCESSING = "processing"
+    COMPLETED = "completed"
+    FAILED = "failed"
+    CACHED = "cached"
+
+
+class CacheLevel(Enum):
+    """(reference tiling.py:57-61)."""
+
+    L1_MEMORY = "l1_memory"
+    L2_DISK = "l2_disk"
+    L3_CLOUD = "l3_cloud"
+
+
+@dataclass
+class TileMetadata:
+    """(reference tiling.py:64-100)."""
+
+    block_id: str
+    tile_index: int
+    row: int
+    col: int
+    global_x: int
+    global_y: int
+    input_w: int
+    input_h: int
+    output_w: int
+    output_h: int
+    overlap_top: int
+    overlap_bottom: int
+    overlap_left: int
+    overlap_right: int
+    image_hash: str = ""
+    neighbor_ids: List[int] = field(default_factory=list)
+    complexity_score: float = 0.0
+    roi_flags: Dict[str, Any] = field(default_factory=dict)
+    status: TileStatus = TileStatus.PENDING
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = dict(self.__dict__)
+        d["status"] = self.status.value
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TileMetadata":
+        d = dict(d)
+        d["status"] = TileStatus(d.get("status", "pending"))
+        return cls(**d)
+
+
+@dataclass
+class Tile:
+    """(reference tiling.py:103-121)."""
+
+    data: np.ndarray
+    metadata: TileMetadata
+
+    def get_effective_region(self) -> np.ndarray:
+        """Tile content minus its overlap bands."""
+        m = self.metadata
+        h, w = self.data.shape[:2]
+        return self.data[
+            m.overlap_top : h - m.overlap_bottom if m.overlap_bottom else h,
+            m.overlap_left : w - m.overlap_right if m.overlap_right else w,
+        ]
+
+
 class TilingModule:
-    """Overlap-grid decomposition of an image into a full-block batch."""
+    """Overlap-grid decomposition of an image into a full-block batch, with
+    the tile store and checkpoint/resume."""
 
     def __init__(
         self,
@@ -39,13 +130,28 @@ class TilingModule:
         overlap_ratio: float = 0.2,
         padding_mode: Union[PaddingMode, str] = PaddingMode.MIRROR,
         step_multiple: int = 32,
+        cache_dir: Optional[str] = None,
+        l1_cache_size: Optional[int] = None,
+        config: Optional[TilingConfig] = None,
     ):
+        cfg = config or TilingConfig()
+        self.config = cfg
         self.block_size = block_size
         self.overlap_ratio = overlap_ratio
         self.padding_mode = (
             padding_mode if isinstance(padding_mode, PaddingMode) else PaddingMode(padding_mode)
         )
         self.step_multiple = step_multiple
+        # Nothing is written until a tile is stored.
+        self.store = TileStore(cache_dir or cfg.cache_dir, l1_cache_size or cfg.l1_cache_size)
+        self._registry: Dict[str, Tile] = {}
+        self._registry_lock = threading.Lock()
+        self.processing_state: Dict[str, Dict[str, Any]] = {}
+
+    def _layout(self, w: int, h: int) -> TileLayout:
+        return compute_layout(
+            w, h, self.block_size, self.overlap_ratio, step_multiple=self.step_multiple
+        )
 
     def split_to_batch(
         self, image: Union[np.ndarray, torch.Tensor], device: Union[str, torch.device] = "cuda"
@@ -57,8 +163,98 @@ class TilingModule:
             image = torch.from_numpy(np.asarray(image, np.float32))
         image = image.to(device=dev, dtype=torch.float32)
         h, w = image.shape[:2]
-        layout = compute_layout(
-            w, h, self.block_size, self.overlap_ratio, step_multiple=self.step_multiple
-        )
+        layout = self._layout(w, h)
         padded = pad_image(image, layout, self.padding_mode.value)
         return layout, extract_tiles(padded, layout)
+
+    # -- hashing (reference tiling.py:148-157) ------------------------------
+    @staticmethod
+    def compute_image_hash(source: Union[str, np.ndarray]) -> str:
+        """md5 of a file's bytes, or of an array's bytes in C order."""
+        if isinstance(source, str):
+            h = hashlib.md5()
+            with open(source, "rb") as f:
+                for chunk in iter(lambda: f.read(1 << 20), b""):
+                    h.update(chunk)
+            return h.hexdigest()
+        return hashlib.md5(np.ascontiguousarray(source).tobytes()).hexdigest()
+
+    # -- the registry and streaming loads (reference tiling.py:255-281) -----
+    def get_tile(self, block_id: str) -> Optional[Tile]:
+        with self._registry_lock:
+            return self._registry.get(block_id)
+
+    def load_tile_streaming(self, image_path: str, tile_index: int) -> np.ndarray:
+        """Tile ``tile_index`` of the image's layout as float32 [B, B, 3],
+        mirror-padded where it passes the image's edge. PNG is decoded by
+        the port (the whole image, then cropped); other formats go through
+        PIL where it is installed (``io.image.load_image``)."""
+        image = load_image(image_path)
+        h, w = image.shape[:2]
+        layout = self._layout(w, h)
+        y, x = (int(v) for v in layout.positions[tile_index])
+        data = image[y : min(y + layout.block, h), x : min(x + layout.block, w)]
+        ph = layout.block - data.shape[0]
+        pw = layout.block - data.shape[1]
+        if ph or pw:
+            data = np.pad(data, ((0, ph), (0, pw), (0, 0)), mode="reflect")
+        return np.ascontiguousarray(data, np.float32)
+
+    # -- cache (reference tiling.py:283-295) --------------------------------
+    def save_tile_cache(self, tile: Tile) -> None:
+        self.store.put(tile.metadata.image_hash, tile.metadata.block_id, tile.data)
+        tile.metadata.status = TileStatus.CACHED
+
+    def load_tile_cache(self, image_hash: str, block_id: str) -> Optional[np.ndarray]:
+        return self.store.get(image_hash, block_id)
+
+    def get_cache_stats(self) -> Dict[str, Any]:
+        return self.store.stats()
+
+    # -- checkpoint / resume (reference tiling.py:297-340) ------------------
+    def _checkpoint_path(self, image_hash: str) -> str:
+        return os.path.join(self.store.cache_dir, image_hash, "checkpoint.json")
+
+    def save_checkpoint(self, image_hash: str) -> str:
+        """Write ``processing_state[image_hash]`` and the metadata of its
+        registered tiles to ``<store>/<image_hash>/checkpoint.json``."""
+        state = self.processing_state.get(image_hash)
+        if state is None:
+            raise KeyError(f"no processing state for {image_hash}")
+        with self._registry_lock:
+            metas = [
+                t.metadata.to_dict()
+                for t in self._registry.values()
+                if t.metadata.image_hash == image_hash
+            ]
+        path = self._checkpoint_path(image_hash)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"state": state, "tiles": metas}, f)
+        os.replace(tmp, path)
+        return path
+
+    def restore_from_cache(self, image_hash: str) -> Optional[List[Tile]]:
+        """Rebuild the checkpoint's tiles from the store into this module's
+        registry, in tile order; a tile missing from the store comes back
+        PENDING with zero data. None when there is no checkpoint."""
+        path = self._checkpoint_path(image_hash)
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            payload = json.load(f)
+        self.processing_state[image_hash] = payload["state"]
+        tiles: List[Tile] = []
+        for md in payload["tiles"]:
+            meta = TileMetadata.from_dict(md)
+            data = self.store.get(image_hash, meta.block_id)
+            if data is None:
+                meta.status = TileStatus.PENDING
+                data = np.zeros((meta.input_h, meta.input_w, 3), np.float32)
+            tile = Tile(data=data, metadata=meta)
+            tiles.append(tile)
+            with self._registry_lock:
+                self._registry[meta.block_id] = tile
+        tiles.sort(key=lambda t: t.metadata.tile_index)
+        return tiles

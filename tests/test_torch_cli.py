@@ -122,7 +122,6 @@ def test_png_output_and_qa_report(png, tmp_path, capsys):
     (["--provider", "zssr"], "provider='zssr' is not ported"),
     (["--zssr-steps", "10"], "--zssr-steps"),
     (["--mesh", "data=2"], "--mesh"),
-    (["--checkpoint"], "--checkpoint"),
     (["--profile", "trace"], "--profile"),
 ])
 def test_unported_flags_exit_nonzero_with_their_message(png, tmp_path, capsys, args, needle):

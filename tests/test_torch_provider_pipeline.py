@@ -38,8 +38,9 @@ def image():
     return np.clip(img + rng.normal(0, 10, img.shape), 0, 255).astype(np.float32)
 
 
-def run_both(image, tmp_path, monkeypatch, trained, scale, prompt=None, **cfg):
-    """(reference pixels, reference pipeline, port pixels, port pipeline)."""
+def run_both(image, tmp_path, monkeypatch, trained, scale, prompt=None, hook=None, **cfg):
+    """(reference pixels, reference pipeline, port pixels, port pipeline);
+    ``hook(pipeline)`` runs on each side's pipeline before its job."""
     d = tmp_path / "ckpt"
     d.mkdir()
     for name, s in trained:
@@ -55,12 +56,16 @@ def run_both(image, tmp_path, monkeypatch, trained, scale, prompt=None, **cfg):
     jpipe.sr_module.config.checkpoint_dir = str(d)
     jpipe.sr_module.config.compute_dtype = "float32"
     ref_path = str(tmp_path / "ref.png")
+    if hook is not None:
+        hook(jpipe)
     res = jpipe.process(image, ref_path, prompt=prompt)
     assert res.success, res.error_message
     with Image.open(ref_path) as im:
         ref = np.asarray(im).astype(np.int16)
     pipe = SuperResolutionPipeline(PipelineConfig(compute_dtype="float32", device="cpu",
                                                   **common), weights)
+    if hook is not None:
+        hook(pipe)
     res = pipe.process(image, str(tmp_path / "out.tiff"), prompt=prompt)
     assert res.success, res.error_message
     got = read_tiff(res.output_path).astype(np.int16)
@@ -103,6 +108,57 @@ def test_self_ensemble_with_selection(image, tmp_path, monkeypatch):
     assert info["models"] == jpipe.last_run_info["models"] == ["edsr_l"]
     assert info["step_members"] == jpipe.last_run_info["step_members"] == [[["edsr_l", 8]]]
     assert info["self_ensemble"]
+
+
+def test_fast_with_the_ensemble_serves_the_fast_net(image, tmp_path, monkeypatch):
+    """The reference's staged rule (pipeline.py:395-415) reads whether the
+    quality net is trained from its cache of built nets: a fresh ``fast``
+    job has built none, so both sides serve the fast net (espcn) ensembled,
+    though edsr_m, the quality net, is trained at the step."""
+    _, _, _, pipe = run_both(image, tmp_path, monkeypatch,
+                             [("edsr_m", 3)] + [("espcn", s) for s in (2, 3, 4)], 3,
+                             provider="fast", self_ensemble=True)
+    info = pipe.last_run_info
+    assert info["provider"] == "fast"
+    assert info["models"] == ["espcn"] and info["step_members"] == [[["espcn", 8]]]
+
+
+def _fail_quality(pipe):
+    """Each quality-tier SR batch runs, then fails: the quality nets are
+    built, and the job degrades to ``fast``."""
+    real = pipe._upscale_batch
+
+    def failing(tiles, ladder, provider=None, *args, **kwargs):
+        out = real(tiles, ladder, provider, *args, **kwargs)
+        if (provider or pipe.config.provider) != "fast":
+            raise RuntimeError("injected device failure after the batch")
+        return out
+
+    pipe._upscale_batch = failing
+
+
+def test_fast_fallback_with_the_ensemble_serves_the_built_quality_net(image, tmp_path,
+                                                                       monkeypatch):
+    """The rule's other side: a quality job with the ensemble fails four
+    times and degrades to ``fast``; its quality net is built by then, so
+    both sides' staged rule serves edsr_m ensembled on the degraded
+    ladder."""
+    _, jpipe, _, pipe = run_both(image, tmp_path, monkeypatch,
+                                 [("edsr_m", 2)] + [("espcn", s) for s in (2, 3, 4)], 2,
+                                 self_ensemble=True, hook=_fail_quality)
+    info = pipe.last_run_info
+    assert info["provider"] == jpipe.last_run_info["provider"] == "fast"
+    assert info["sr_degradations"] == jpipe.last_run_info["sr_degradations"] == 1
+    assert info["models"] == ["edsr_m"] and info["step_members"] == [[["edsr_m", 8]]]
+
+
+def test_hybrid_with_the_ensemble_skips_the_polish(image, tmp_path, monkeypatch):
+    """The same rule on ``hybrid`` with a trained quality net: the quality
+    net ensembled, and no hybrid polish though it is trained."""
+    _, _, _, pipe = run_both(image, tmp_path, monkeypatch,
+                             [("edsr_m", 2), ("espcn_polish", 1)], 2,
+                             provider="hybrid", self_ensemble=True)
+    assert pipe.last_run_info["step_members"] == [[["edsr_m", 8]]]
 
 
 def test_rcan(image, tmp_path, monkeypatch):
