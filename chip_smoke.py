@@ -82,16 +82,40 @@ in order, each printing one JSON line with its seconds:
    the ENTERPRISE job first, each within 1 LSB; beside three back-to-back
    calls). Each case's runs hold every K1/K2 launch against the plain
    version, and a run with the counts reset shows both kernels;
-13. kernel_shapes: K1 and K2 timed at every distinct (input, output)
+13. zssr: ``process(provider="zssr")`` at full width on the quality
+   path's flags: seeded ``edsr_xl`` handed in as trained, so
+   ``zssr_prepare`` tunes a copy of it on the input for 150 steps (batch
+   8, patch 48, lr 1e-4), which then serves both x3 steps; a warm-up with
+   every K1/K2 launch held against the plain version, then a run with the
+   counts reset. Its tune seconds, steps/s and TFLOP/s (three times the
+   forward convolutions' FLOP a step) beside the bf16 dense peak, the SR
+   stage, MP/s and peak memory; the tuned weights must differ from the
+   seeded ones, the seeded ones must be unchanged, and the TIFF must
+   differ from the main path's;
+14. train: ``train_synthetic("edsr_xl", 3)`` for 200 steps at batch 32,
+   patch 48 on a 96-image, 256-px corpus: corpus seconds, steps/s,
+   TFLOP/s, first and last chunk loss (it must fall), peak memory; the
+   state dict saved in a temporary checkpoint directory reloads, a
+   ``process()`` with that directory serves the net as trained (no IBP
+   call, the TIFF equal to one served with the weights handed in), and
+   ``python3 -m srs_tpu_torch train --synthetic`` runs once in a
+   subprocess;
+15. train_reference: the trainer card against CPU on small inputs,
+   float32 with TF32 off: five zssr steps (espcn) and five ``train_step``
+   steps (edsr_m) with per-step losses within a relative 1e-3, and zssr
+   in bfloat16 with the tuned nets' outputs above 40 dB PSNR;
+16. kernel_shapes: K1 and K2 timed at every distinct (input, output)
    shape that the warm-up runs launched, each with its launches per
    path, bound and share of the bound.
 
 With ``--profile`` it then runs both paths and the fusion case once more
 under ``torch.profiler`` and prints the device's busy share, per stage
 and in all, its time by kernel (K1 and K2 always, in all and per launch
-with its shape) and by op, and the in-place adds by input shape.
+with its shape) and by op, and the in-place adds by input shape; and a
+zssr tune and a trainer run, each 30 steps of edsr_xl x3, with the busy
+share, device launches a step and time by kernel and op.
 Then it prints a ``done`` line with the total seconds, the kernels' JSON
-line (each kernel's entry with its ``shapes`` of phase 10), the ``nvidia-smi``
+line (each kernel's entry with its ``shapes`` of phase 16), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Without a CUDA card, or without the port
 beside it, it exits with code 2 and prints no result. Outputs go to a
@@ -1518,6 +1542,313 @@ def job_layer(torch, K, tmp: str, image: np.ndarray, main_pipe, main_tiff: str) 
     return out
 
 
+# -- the training slice ------------------------------------------------------------------------
+
+# Published bf16 dense peak of one H100 SXM (NVIDIA data sheet), the rate a
+# training step's convolutions run at.
+BF16_FLOPS = 989e12
+# The reference's zssr defaults (pipeline.py:121, sr_module.py:612-620).
+ZSSR_STEPS, ZSSR_PATCH, ZSSR_BATCH = 150, 48, 8
+# The trainer's run: edsr_xl x3 at the reference's batch and patch.
+TRAIN = dict(steps=200, corpus_n=96, corpus_size=256, patch=48, batch=32)
+# Card against CPU in float32 (TF32 off): per-step losses of the same
+# optimizer steps on the same patches. Adam's first steps move each weight
+# by about lr whatever its gradient's size, so a gradient component near
+# zero whose sign differs between two summation orders moves that weight
+# by 2 lr; over five steps the losses agree to this relative tolerance.
+TRAIN_LOSS_RTOL = 1e-3
+# The bf16 zssr net's output, card against CPU (tests/test_torch_train.py
+# holds the port against the reference to the same floor).
+ZSSR_BF16_PSNR_FLOOR = 40.0
+
+
+def conv_flops(torch, net, h: int, w: int) -> int:
+    """FLOP (two per multiply-add) of the convolutions of one forward pass
+    of ``net`` on one (h, w) input, from the shapes its convolutions see."""
+    total = []
+
+    def hook(mod, inp, out):
+        kh, kw = mod.kernel_size
+        total.append(2 * out.numel() * mod.in_channels // mod.groups * kh * kw)
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        net(torch.zeros(1, h, w, 3, device=next(net.parameters()).device))
+    for hk in hooks:
+        hk.remove()
+    return int(sum(total))
+
+
+def zssr_path(torch, K, tmp: str, image: np.ndarray, main_tiff: str) -> tuple:
+    """``process(provider="zssr")`` at full width: seeded edsr_xl handed in
+    as trained (so the base is the quality net at lr 1e-4), tuned on the
+    input for the reference's 150 steps at batch 8, patch 48, then served
+    on both x3 steps and blended with K1/K2. The tuned net must differ from
+    the seeded one, the seeded weights must be unchanged, and the TIFF must
+    differ from the main path's."""
+    from srs_tpu_torch.io.native import read_tiff
+
+    weights = xl_weights()
+    seeded = {k: v.clone() for k, v in weights[("edsr_xl", 3)].items()}
+    nums, pipe, res, path = drive_path(torch, K, tmp, "zssr", image, weights=weights,
+                                       provider="zssr", zssr_steps=ZSSR_STEPS, **QUALITY_FLAGS)
+    info, sr = pipe.last_run_info, pipe.sr_module
+    z = info["zssr"]
+    if info["provider"] != "zssr" or z is None or z["base"] != "edsr_xl" or z["lr"] != 1e-4 \
+            or not z["base_trained"] or z["steps"] != ZSSR_STEPS:
+        fail(f"zssr: served {info['provider']} with {z}")
+    if info["step_members"] != [[["edsr_xl", 1]], [["edsr_xl", 1]]]:
+        fail(f"zssr: step members {info['step_members']}")
+    if any(not torch.equal(weights[("edsr_xl", 3)][k], v) for k, v in seeded.items()):
+        fail("zssr: the seeded weights handed in changed")
+    tuned = sr.zssr_nets[3].state_dict()
+    moved = {k: float((tuned[k].float().cpu() - v.to(tuned[k].dtype).float()).abs().max())
+             for k, v in seeded.items()}
+    if max(moved.values()) == 0.0:
+        fail("zssr: the tuned weights equal the seeded ones")
+    diff = np.abs(read_tiff(path).astype(np.int16) - read_tiff(main_tiff))
+    if diff.max() == 0:
+        fail("zssr: the TIFF equals the main path's")
+    os.remove(path)
+    flops = 3 * ZSSR_BATCH * conv_flops(torch, sr.zssr_nets[3], ZSSR_PATCH, ZSSR_PATCH)
+    tune_s = z["seconds"]
+    nums.update(
+        provider=info["provider"], zssr=z, step_members=info["step_members"],
+        tune_s=tune_s, steps_per_s=ZSSR_STEPS / tune_s,
+        step_tflop=flops / 1e12, tflop_per_s=flops * ZSSR_STEPS / tune_s / 1e12,
+        bf16_peak_tflop_per_s=BF16_FLOPS / 1e12,
+        pct_of_bf16_peak=100.0 * flops * ZSSR_STEPS / tune_s / BF16_FLOPS,
+        sr_stage_without_tune_s=res.stage_times["super_resolution"] - tune_s,
+        max_weight_change=max(moved.values()),
+        vs_main_path={"mean_abs_lsb": float(diff.mean()), "max_lsb": int(diff.max())},
+    )
+    return nums, pipe
+
+
+def train_phase(torch, tmp: str) -> dict:
+    """``train_synthetic`` on edsr_xl x3 (module docstring, phase 14), a
+    ``process()`` that loads what it saved as trained (no IBP), and one
+    ``python3 -m srs_tpu_torch train --synthetic`` subprocess."""
+    import srs_tpu_torch.models.sr_module as sr_mod
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.models.corpus import make_corpus
+    from srs_tpu_torch.models.registry import build_model, load_checkpoint
+    from srs_tpu_torch.models.train import train_synthetic
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+
+    ckpt = os.path.join(tmp, "models")
+    t0 = time.time()
+    corpus = make_corpus(TRAIN["corpus_n"], TRAIN["corpus_size"], seed=0)
+    corpus_s = time.time() - t0
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state, loss = train_synthetic("edsr_xl", 3, steps=TRAIN["steps"], patch=TRAIN["patch"],
+                                  batch=TRAIN["batch"], corpus=corpus, checkpoint_dir=ckpt,
+                                  device="cuda", on_step=lambda i, m: losses.append(m["loss"]))
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = torch.stack(losses).cpu().numpy()
+    first, last = float(per_step[:50].mean()), float(per_step[-50:].mean())
+    if len(per_step) != TRAIN["steps"] or not np.isfinite(per_step).all() or not last < first:
+        fail(f"train: {len(per_step)} steps, first chunk {first}, last chunk {last}")
+    if abs(loss - last) > 1e-5 * max(1.0, abs(last)):
+        fail(f"train: returned loss {loss} is not the last chunk's mean {last}")
+    saved = load_checkpoint("edsr_xl", 3, ckpt)
+    if saved is None or any(not torch.equal(saved[k], v) for k, v in state.items()):
+        fail("train: the saved checkpoint does not reload as the trained state")
+    net, _ = build_model("edsr_xl", 3, state, device="cuda")
+    flops = 3 * TRAIN["batch"] * conv_flops(torch, net, TRAIN["patch"], TRAIN["patch"])
+    del net
+
+    # process() with the same checkpoint_dir counts the net as trained: no IBP
+    image = synthetic_image(96, 112, seed=8)
+    ibp = {"n": 0}
+    real_bp = sr_mod.back_project
+
+    def counted(*args, **kwargs):
+        ibp["n"] += 1
+        return real_bp(*args, **kwargs)
+
+    cfg = dict(block_size=64, target_resolution="1008x864", ibp_steps=4, device="cuda",
+               **QUALITY_FLAGS)
+    sr_mod.back_project = counted
+    try:
+        pipe = SuperResolutionPipeline(PipelineConfig(checkpoint_dir=ckpt, **cfg))
+        res = pipe.process(image, os.path.join(tmp, "trained.tiff"))
+    finally:
+        sr_mod.back_project = real_bp
+    if not res.success:
+        fail(f"train: process() with the trained net failed: {res.error_message}")
+    info = pipe.last_run_info
+    if ibp["n"] or info["step_members"] != [[["edsr_xl", 1]], [["edsr_xl", 1]]] \
+            or not pipe.sr_module.is_trained("edsr_xl", 3):
+        fail(f"train: process() served {info['step_members']} with {ibp['n']} IBP calls")
+    handed = SuperResolutionPipeline(PipelineConfig(**cfg), {("edsr_xl", 3): state})
+    res2 = handed.process(image, os.path.join(tmp, "handed.tiff"))
+    lsb = int(np.abs(read_tiff(res.output_path).astype(np.int16)
+                     - read_tiff(res2.output_path)).max())
+    if not res2.success or lsb:
+        fail(f"train: loaded and handed-in weights differ by {lsb} LSB")
+
+    # the command line, once, in its own process
+    cli_dir = os.path.join(tmp, "cli_models")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "srs_tpu_torch", "train", "--synthetic",
+                           "--steps", "2", "--corpus-n", "2", "--patch", "24", "--batch", "8",
+                           "--checkpoint-dir", cli_dir],
+                          capture_output=True, text=True, timeout=300)
+    cli_s = time.time() - t0
+    if proc.returncode != 0 or not os.path.isfile(os.path.join(cli_dir, "espcn_x2.pt")):
+        fail(f"train: python -m srs_tpu_torch train exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    return {
+        "config": {"model": "edsr_xl", "scale": 3, **TRAIN},
+        "corpus_s": corpus_s, "train_s": train_s, "steps_per_s": TRAIN["steps"] / train_s,
+        "step_tflop": flops / 1e12, "tflop_per_s": flops * TRAIN["steps"] / train_s / 1e12,
+        "bf16_peak_tflop_per_s": BF16_FLOPS / 1e12,
+        "pct_of_bf16_peak": 100.0 * flops * TRAIN["steps"] / train_s / BF16_FLOPS,
+        "first_chunk_loss": first, "last_chunk_loss": last, "peak_mem_gb": peak,
+        "process_trained": {"step_members": info["step_members"], "ibp_calls": ibp["n"],
+                            "stage_times": res.stage_times, "vs_handed_in_lsb": lsb},
+        "cli": {"seconds": cli_s, "stdout": proc.stdout.strip().splitlines()[-1:]},
+    }
+
+
+def train_reference(torch) -> dict:
+    """The trainer card against CPU on small inputs, float32 with TF32 off:
+    five ``zssr_finetune`` steps of a seeded espcn x2 and five
+    ``train_step`` steps of a seeded edsr_m x2 on the same batches, per-step
+    losses within ``TRAIN_LOSS_RTOL``; and zssr in bfloat16, the tuned
+    nets' outputs on the same input above ``ZSSR_BF16_PSNR_FLOOR``."""
+    from srs_tpu_torch.models.registry import build_model, seeded_params
+    from srs_tpu_torch.models.train import init_train_state, train_step, zssr_finetune
+
+    torch.backends.cudnn.allow_tf32 = False
+    image = synthetic_image(40, 48, seed=9)
+    probe = torch.from_numpy(synthetic_image(16, 16, seed=10)[None])
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        losses, outputs = {}, {}
+        for device in ("cuda", "cpu"):
+            net, _ = build_model("espcn", 2, seeded_params("espcn", 2, seed=3), dtype=dtype,
+                                 device=device, master_weights=True)
+            rec = []
+            tuned = zssr_finetune(net, image, scale=2, steps=5, patch=12, batch=8, lr=1e-3,
+                                  on_step=lambda i, m, rec=rec: rec.append(float(m["loss"])))
+            losses[device] = rec
+            with torch.no_grad():
+                outputs[device] = tuned(probe.to(device)).cpu().numpy().astype(np.float64)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        mse = float(np.mean((outputs["cuda"] - outputs["cpu"]) ** 2))
+        psnr = float(10 * np.log10(255.0**2 / max(mse, 1e-12)))
+        out[f"zssr_{dtype}"] = {"losses": losses, "max_rel_loss_diff": rel, "psnr_db": psnr}
+        if dtype == "float32" and rel > TRAIN_LOSS_RTOL:
+            fail(f"train_reference: zssr losses card {losses['cuda']} CPU {losses['cpu']}")
+        if dtype == "bfloat16" and psnr < ZSSR_BF16_PSNR_FLOOR:
+            fail(f"train_reference: bf16 zssr output {psnr:.2f} dB < {ZSSR_BF16_PSNR_FLOOR}")
+
+    rng = np.random.default_rng(11)
+    batches = []
+    for _ in range(5):
+        hr = rng.uniform(0, 255, (4, 48, 48, 3)).astype(np.float32)
+        batches.append((hr.reshape(4, 24, 2, 24, 2, 3).mean(axis=(2, 4)), hr))
+    losses = {}
+    for device in ("cuda", "cpu"):
+        net, _ = build_model("edsr_m", 2, seeded_params("edsr_m", 2, seed=4), dtype="float32",
+                             device=device, master_weights=True)
+        net, opt = init_train_state(net, 1e-3)
+        rec = []
+        for lr_b, hr_b in batches:
+            m = train_step(net, opt, torch.from_numpy(lr_b).to(device),
+                           torch.from_numpy(hr_b).to(device))
+            rec.append((float(m["loss"]), float(m["grad_norm"])))
+        losses[device] = rec
+    rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(losses["cuda"], losses["cpu"]))
+    out["train_step_float32"] = {"loss_grad_norm": losses, "max_rel_loss_diff": rel}
+    if rel > TRAIN_LOSS_RTOL:
+        fail(f"train_reference: train_step losses card {losses['cuda']} CPU {losses['cpu']}")
+    torch.backends.cudnn.allow_tf32 = True
+    out["tolerance"] = {"loss_rtol": TRAIN_LOSS_RTOL, "bf16_psnr_floor": ZSSR_BF16_PSNR_FLOOR}
+    return out
+
+
+def self_dev_ms(e) -> float:
+    """An op's own device milliseconds in ``key_averages()``, under either
+    name the profiler has given it."""
+    us = getattr(e, "self_device_time_total", None)
+    return (us if us is not None else getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+
+def busy_intervals(spans) -> list:
+    """The union of device (start, end) intervals, sorted."""
+    busy = []
+    for a, b in sorted(spans):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    return busy
+
+
+def profile_training(torch, image: np.ndarray) -> dict:
+    """A zssr tune (seeded edsr_xl x3, 30 steps at batch 8, patch 48) and a
+    trainer run (30 steps at batch 32 on a 4-image corpus) under
+    torch.profiler, each after a warm-up: the device's busy share of the
+    wall time, device launches a step, and the time by kernel and by op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from srs_tpu_torch.models.corpus import make_corpus
+    from srs_tpu_torch.models.registry import build_model
+    from srs_tpu_torch.models.train import train_synthetic, zssr_finetune
+
+    net, _ = build_model("edsr_xl", 3, xl_weights()[("edsr_xl", 3)], device="cuda",
+                         master_weights=True)
+    corpus = make_corpus(4, TRAIN["corpus_size"], seed=0)
+    runs = {
+        "zssr": lambda steps: zssr_finetune(net, image, scale=3, steps=steps, patch=ZSSR_PATCH,
+                                            batch=ZSSR_BATCH, lr=1e-4),
+        "train": lambda steps: train_synthetic("edsr_xl", 3, steps=steps, scan_chunk=steps,
+                                               patch=TRAIN["patch"], batch=TRAIN["batch"],
+                                               corpus=corpus, device="cuda"),
+    }
+    out = {}
+    for name, run in runs.items():
+        run(5)
+        torch.cuda.synchronize()
+        steps = 30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            run(steps)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        spans, by_name = [], {}
+        for e in prof.events():
+            # the optimizer's range on the device timeline is no kernel
+            if e.device_type != DeviceType.CUDA or e.name.startswith("Optimizer."):
+                continue
+            spans.append((e.time_range.start, e.time_range.end))
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        busy_us = sum(b - a for a, b in busy_intervals(spans))
+        ops = sorted(((e.key, self_dev_ms(e), e.count) for e in prof.key_averages()
+                      if e.key.startswith("aten::") and self_dev_ms(e) > 0),
+                     key=lambda t: -t[1])[:10]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        out[name] = {
+            "steps": steps, "wall_s": wall, "ms_per_step": wall / steps * 1e3,
+            "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / wall,
+            "device_events_per_step": len(spans) / steps,
+            "top_device_ms": [[k[:120], round(ms, 3), n] for k, (ms, n) in top],
+            "top_ops_self_device_ms": [[k, round(ms, 3), n] for k, ms, n in ops],
+        }
+    return out
+
+
 def profile_main_path(torch, K, pipe, image, tmp: str) -> dict:
     """One more run of a path under torch.profiler: the device's busy share
     of the wall time, per pipeline stage and in all, and its time by kernel
@@ -1548,12 +1879,7 @@ def profile_main_path(torch, K, pipe, image, tmp: str) -> dict:
                 v.append((e.time_range.start, e.time_range.elapsed_us() / 1e3))
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    busy = []  # union of kernel and copy intervals
-    for a, b in sorted(spans):
-        if busy and a <= busy[-1][1]:
-            busy[-1][1] = max(busy[-1][1], b)
-        else:
-            busy.append([a, b])
+    busy = busy_intervals(spans)
     busy_us = sum(b - a for a, b in busy)
     stages = {
         name: {"window_ms": (w1 - w0) / 1e3,
@@ -1567,10 +1893,6 @@ def profile_main_path(torch, K, pipe, image, tmp: str) -> dict:
     per_launch = {k: [[ms, *shapes[k][i]] if i < len(shapes[k]) else [ms]
                       for i, (_, ms) in enumerate(sorted(v))]
                   for k, v in launches.items()}
-
-    def self_dev_ms(e):
-        us = getattr(e, "self_device_time_total", None)
-        return (us if us is not None else getattr(e, "self_cuda_time_total", 0)) / 1e3
 
     ops = sorted(((e.key, self_dev_ms(e), e.count) for e in prof.key_averages()
                   if e.key.startswith("aten::") and self_dev_ms(e) > 0),
@@ -1669,7 +1991,18 @@ def main() -> int:
         emit("jobs", t0, **job_nums)
 
         t0 = time.time()
-        held = {"main_path": main["held_against_plain"],
+        zssr, _zssr_pipe = zssr_path(torch, K, tmp, image,
+                                     os.path.join(tmp, "out_main_path.tiff"))
+        emit("zssr", t0, **zssr)
+
+        t0 = time.time()
+        emit("train", t0, **train_phase(torch, tmp))
+
+        t0 = time.time()
+        emit("train_reference", t0, **train_reference(torch))
+
+        t0 = time.time()
+        held = {"main_path": main["held_against_plain"], "zssr": zssr["held_against_plain"],
                 "bench_path": bench["held_against_plain"],
                 "cli_path": cli["held_against_plain"],
                 **{f"provider_{k}": v["held_against_plain"] for k, v in prov.items()},
@@ -1686,6 +2019,8 @@ def main() -> int:
             t0 = time.time()
             emit("profile_fusion", t0,
                  **profile_main_path(torch, K, prov_pipes["fusion"], image, tmp))
+            t0 = time.time()
+            emit("profile_training", t0, **profile_training(torch, image))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1700,6 +2035,7 @@ def main() -> int:
             "launches_by_path": {"bench_path": bench["launches"][name],
                                  "main_path": main["launches"][name],
                                  "cli_path": cli["launches"][name],
+                                 "zssr": zssr["launches"][name],
                                  **{f"provider_{k}": v["launches"][name]
                                     for k, v in prov.items()},
                                  **{f"jobs_{k}": job_nums[k]["launches"][name] for k in JOB_CASES}},

@@ -1,30 +1,33 @@
-"""Command-line interface (port of the ``process`` subcommand of
-``srs_tpu/cli.py:17-64,203-253``).
+"""Command-line interface (port of the ``process`` and ``train``
+subcommands of ``srs_tpu/cli.py:17-64,84-106,203-283``).
 
     python -m srs_tpu_torch process in.png out.tiff [--target 100MP] [...]
+    python -m srs_tpu_torch train --synthetic [--model espcn --scale 2 ...]
+    python -m srs_tpu_torch train hr1.png hr2.png [...]
 
-It takes the reference's flags. Those the port serves build a
-``PipelineConfig``; ``--device`` (``cuda`` by default, ``cpu`` for the
-plain PyTorch versions) is the port's own. ``--checkpoint`` keeps the
-upscaled tiles in the port's tile store (``~/.cache/srs_tpu_torch/tiling``)
-and resumes a re-run of the same job from them. Flags whose feature is not
-ported (``--provider zssr``, ``--zssr-steps``, ``--mesh``, ``--profile``)
-exit with code 2 and say which ROADMAP item holds it. The other
-subcommands of the reference (bench, warmup, webui, train, generate,
-info) are not ported (ROADMAP Queue 1: items 1, 4, 5 and 7).
+They take the reference's flags. ``--device`` (``cuda`` by default,
+``cpu`` for the plain PyTorch versions) is the port's own, and so is
+``process --checkpoint-dir``. ``train`` saves the net's state dict to
+``{checkpoint dir}/{model}_x{scale}.pt``; ``process`` counts the nets
+saved in its checkpoint directory as trained. Both default to
+``~/.cache/srs_tpu_torch/models``. ``--checkpoint`` keeps the upscaled
+tiles in the port's tile store (``~/.cache/srs_tpu_torch/tiling``) and
+resumes a re-run of the same job from them. Flags whose feature is not
+ported (``--mesh``, ``--profile``) exit with code 2 and say which ROADMAP
+item holds it. The other subcommands of the reference (bench, warmup,
+webui, generate, info) are not ported (ROADMAP Queue 1: items 4, 5 and 7).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import List, Optional
 
 # Flags of the reference whose feature the port has not yet: (the
 # attribute, the value that means "not asked for", what holds it).
 _UNPORTED_FLAGS = (
-    ("zssr_steps", 150, "--zssr-steps: the zssr provider (ROADMAP Queue 1, item 1: the "
-                        "training slice)"),
     ("mesh", None, "--mesh: the parallel/ mesh (ROADMAP Queue 1, item 6: parallel/ on "
                    "torch.distributed)"),
     ("profile", None, "--profile: the device trace (ROADMAP Queue 1, item 4: the other "
@@ -56,6 +59,8 @@ def _cmd_process(args: argparse.Namespace) -> int:
             per_scale_selection=not args.pin_quality_model,
             self_ensemble=args.self_ensemble,
             enable_checkpoint=args.checkpoint,
+            zssr_steps=args.zssr_steps,
+            checkpoint_dir=os.path.expanduser(args.checkpoint_dir),
             device=args.device,
         )
     except NotImplementedError as e:
@@ -74,7 +79,31 @@ def _cmd_process(args: argparse.Namespace) -> int:
     return 1
 
 
+def _cmd_train(args: argparse.Namespace) -> int:
+    from .models.train import train_from_images, train_synthetic
+
+    common = dict(steps=args.steps, patch=args.patch, batch=args.batch, lr=args.lr,
+                  checkpoint_dir=os.path.expanduser(args.checkpoint_dir), device=args.device)
+    if args.synthetic:
+        _, loss = train_synthetic(args.model, args.scale, corpus_n=args.corpus_n, **common)
+    elif args.images:
+        _, loss = train_from_images(args.images, args.model, args.scale, **common)
+    else:
+        print("provide HR image files or --synthetic", file=sys.stderr)
+        return 2
+    print(f"trained {args.model} x{args.scale}: final loss {loss:.4f}; "
+          f"checkpoint in {args.checkpoint_dir}")
+    return 0
+
+
+def _add_device(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cuda (default; needs a card) or cpu (the plain PyTorch versions)")
+
+
 def build_parser() -> argparse.ArgumentParser:
+    from .models.train import DEFAULT_CHECKPOINT_DIR
+
     p = argparse.ArgumentParser(prog="srs-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -86,8 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--block-size", type=int, default=512)
     pp.add_argument("--overlap", type=float, default=0.2)
     pp.add_argument("--provider", default="quality",
-                    choices=["quality", "fast", "hybrid", "bicubic", "zssr", "fusion"],
-                    help="zssr is not ported")
+                    choices=["quality", "fast", "hybrid", "bicubic", "zssr", "fusion"])
     pp.add_argument("--blend", default="laplacian",
                     choices=["laplacian", "multi_band", "weighted", "feather",
                              "gradient_domain", "poisson"])
@@ -100,7 +128,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "for every ladder step")
     pp.add_argument("--steps", type=int, default=8, help="back-projection steps")
     pp.add_argument("--zssr-steps", type=int, default=150,
-                    help="self-supervised fine-tune steps for --provider zssr (not ported)")
+                    help="self-supervised fine-tune steps for --provider zssr")
+    pp.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR,
+                    help="directory of trained nets ({model}_x{scale}.pt, as train saves "
+                         "them) and of EVAL.json / FUSION.json")
     pp.add_argument("--mesh", default=None, help="device mesh (not ported)")
     pp.add_argument("--bit-depth", type=int, default=8, choices=[8, 16],
                     help="output bit depth (16 requires TIFF output)")
@@ -121,9 +152,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "steers the conditioned polish")
     pp.add_argument("--no-qa", action="store_true")
     pp.add_argument("--profile", default=None, metavar="DIR", help="device trace (not ported)")
-    pp.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="cuda (default; needs a card) or cpu (the plain PyTorch versions)")
+    _add_device(pp)
     pp.set_defaults(fn=_cmd_process)
+
+    pt = sub.add_parser("train", help="train an SR model on HR images")
+    pt.add_argument("images", nargs="*", help="HR image files")
+    pt.add_argument("--synthetic", action="store_true",
+                    help="train on the procedural corpus (no images needed)")
+    pt.add_argument("--corpus-n", type=int, default=256,
+                    help="procedural corpus size for --synthetic")
+    pt.add_argument("--model", default="espcn", help="registry model name")
+    pt.add_argument("--scale", type=int, default=2)
+    pt.add_argument("--steps", type=int, default=2000)
+    pt.add_argument("--patch", type=int, default=48)
+    pt.add_argument("--batch", type=int, default=32)
+    pt.add_argument("--lr", type=float, default=2e-4)
+    pt.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR,
+                    help=f"where {{model}}_x{{scale}}.pt goes (default {DEFAULT_CHECKPOINT_DIR})")
+    _add_device(pt)
+    pt.set_defaults(fn=_cmd_train)
     return p
 
 

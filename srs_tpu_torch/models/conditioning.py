@@ -1,5 +1,4 @@
-"""Prompt-conditioned polish, serving half (port of
-``srs_tpu/models/conditioning.py:49-120,250-260``).
+"""Prompt-conditioned polish (port of ``srs_tpu/models/conditioning.py``).
 
 A prompt category maps to a conditioning vector ``c = (denoise, deblur,
 deblock)`` in [0, 1] (``CATEGORY_CONDITIONING``). ``CondPolish`` is a
@@ -10,19 +9,26 @@ an untrained polish changes nothing. The polish counts as trained when
 ``("cond_polish", 1)`` weights were handed in
 (``models/registry.convert_flax_params`` or ``seeded_params``).
 
-The training half (``jpeg_blockiness``, ``degrade_conditioned``) waits
-for the training slice.
+The training half makes the polish's (distorted, c) pairs
+(``degrade_conditioned``): per image each axis of ``c`` is zero with
+probability ``zero_frac`` or uniform in [0.1, 1], and the distortion
+applied is what ``c`` says: a Gaussian blur of sigma 1.6 c1, a JPEG-luma
+model of table scale 2.5 c2 (``jpeg_blockiness``: 8x8 blockwise DCT,
+quantization rounding half to even), and Gaussian noise of sigma 25 c0.
+The draws come from a ``torch.Generator``; ``conditioned_distort`` is the
+arm given them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .nets import _residual
+from .nets import Conv2d, Linear, _residual
 
 __all__ = [
     "COND_DIM",
@@ -31,6 +37,10 @@ __all__ = [
     "cond_vector",
     "build_cond_polish",
     "apply_cond_polish",
+    "jpeg_blockiness",
+    "conditioned_draws",
+    "conditioned_distort",
+    "degrade_conditioned",
 ]
 
 COND_DIM = 3  # (denoise, deblur, deblock)
@@ -67,10 +77,10 @@ class CondPolish(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.dtype = dtype
-        self.conv_in = nn.Conv2d(channels, features, 5, padding=2)
-        self.film = nn.Linear(COND_DIM, 2 * features)
-        self.conv_mid = nn.Conv2d(features, features, 3, padding=1)
-        self.conv_out = nn.Conv2d(features, channels, 3, padding=1)
+        self.conv_in = Conv2d(channels, features, 5, padding=2)
+        self.film = Linear(COND_DIM, 2 * features)
+        self.conv_mid = Conv2d(features, features, 3, padding=1)
+        self.conv_out = Conv2d(features, channels, 3, padding=1)
         self.to(dtype)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -110,3 +120,77 @@ def apply_cond_polish(
     the batch's device; the identity without ``params``."""
     net, _ = build_cond_polish(params, dtype, device=img.device)
     return net(img, cond_vector(category, img.device))
+
+
+# The standard JPEG luminance quantization table (quality 50).
+_JPEG_Q50 = (
+    (16, 11, 10, 16, 24, 40, 51, 61),
+    (12, 12, 14, 19, 26, 58, 60, 55),
+    (14, 13, 16, 24, 40, 57, 69, 56),
+    (14, 17, 22, 29, 51, 87, 80, 62),
+    (18, 22, 37, 56, 68, 109, 103, 77),
+    (24, 35, 55, 64, 81, 104, 113, 92),
+    (49, 64, 78, 87, 103, 121, 120, 101),
+    (72, 92, 95, 98, 112, 100, 103, 99),
+)
+
+
+def _dct8_matrix(device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """Orthonormal 8-point DCT-II matrix (rows are the basis), float32."""
+    k = torch.arange(8, dtype=torch.float32, device=device)
+    mat = torch.cos(math.pi * (2 * k[None, :] + 1) * k[:, None] / 16.0)
+    scale = torch.where(k == 0, math.sqrt(1.0 / 8.0), math.sqrt(2.0 / 8.0))
+    return mat * scale[:, None]
+
+
+def jpeg_blockiness(x: torch.Tensor, strength: Union[float, torch.Tensor]) -> torch.Tensor:
+    """JPEG-luma-model compression of (..., H, W, C) per channel, H and W
+    multiples of 8: 8x8 blockwise orthonormal DCT, quantization by the
+    luminance table times ``strength`` (a scalar, or one per leading
+    index: ~0 lossless, 1 ~ quality 50), inverse DCT, clipped to
+    [0, 255]. Rounds half to even, as the reference's ``jnp.round``."""
+    d = _dct8_matrix(x.device)
+    h, w = x.shape[-3], x.shape[-2]
+    b = x.reshape(*x.shape[:-3], h // 8, 8, w // 8, 8, x.shape[-1]) - 128.0
+    coef = torch.einsum("ai,...hiwjc,bj->...hawbc", d, b, d)
+    s = torch.as_tensor(strength, dtype=torch.float32, device=x.device)
+    s = s.reshape(s.shape + (1,) * 5)  # over (hb, a, wb, b, c)
+    q50 = torch.tensor(_JPEG_Q50, dtype=torch.float32, device=x.device).reshape(8, 1, 8, 1)
+    q = torch.clamp(q50 * torch.clamp(s, min=1e-4), min=1e-4)
+    qc = torch.where(s > 1e-3, torch.round(coef / q) * q, coef)
+    out = torch.einsum("ai,...hawbc,bj->...hiwjc", d, qc, d)
+    return torch.clamp(out.reshape(x.shape) + 128.0, 0.0, 255.0)
+
+
+def conditioned_draws(n: int, patch_shape: Tuple[int, int, int], generator: torch.Generator,
+                      zero_frac: float = 0.3, device: Union[str, torch.device] = "cpu"
+                      ) -> Dict[str, torch.Tensor]:
+    """Per image: ``c`` [n, COND_DIM] (each axis zero with probability
+    ``zero_frac``, else uniform in [0.1, 1]) and a standard normal field
+    of the patch shape."""
+    kw = dict(generator=generator, device=device)
+    draw = 0.1 + 0.9 * torch.rand((n, COND_DIM), **kw)
+    on = torch.rand((n, COND_DIM), **kw) >= zero_frac
+    c = torch.where(on, draw, 0.0)
+    return {"c": c, "noise": torch.randn((n,) + tuple(patch_shape), **kw)}
+
+
+def conditioned_distort(hr: torch.Tensor, c: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """The distortion ``c`` [n, 3] reports on hr [n, P, P, 3]: a 7-tap
+    Gaussian blur of sigma max(1.6 c1, 1e-3), JPEG blockiness at 2.5 c2,
+    then ``noise`` times 25 c0, clipped to [0, 255]."""
+    from .train import _gauss7, _sep_blur7
+
+    out = _sep_blur7(hr, _gauss7(torch.clamp(1.6 * c[:, 1], min=1e-3)))
+    out = jpeg_blockiness(out, 2.5 * c[:, 2])
+    return torch.clamp(out + noise * (25.0 * c[:, 0]).reshape(-1, 1, 1, 1), 0.0, 255.0)
+
+
+def degrade_conditioned(hr: torch.Tensor, generator: torch.Generator,
+                        zero_frac: float = 0.3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(distorted, c) training pairs for the conditioned polish from hr
+    [n, P, P, 3] float32 in [0, 255], P a multiple of 8; draws from
+    ``generator`` (on hr's device)."""
+    draws = conditioned_draws(hr.shape[0], tuple(hr.shape[1:]), generator, zero_frac,
+                              hr.device)
+    return conditioned_distort(hr, **draws), draws["c"]

@@ -6,7 +6,12 @@ channel-attention blocks (217-292); and ``back_project`` (295-337).
 Every net is bicubic-residual: the output is bicubic upsampling plus the
 net's residual, so a zero last conv reproduces bicubic exactly. Inputs
 and outputs are NHWC float32 in [0, 255], as in the reference. The
-convolutions run in ``dtype`` on parameters held in that type.
+convolutions run in ``dtype``. Their parameters are held in that type for
+serving, or in float32 for training (``registry.build_model(...,
+master_weights=True)``): each conv casts its weight and bias to the type
+of its input, as flax's ``nn.Conv(dtype=...)`` casts float32 parameters,
+so autograd carries the cast and the gradients reach float32 master
+weights. A cast to the type a parameter already has is free.
 
 Two layout rules hold against the flax reference (handled by
 ``registry.convert_flax_params``):
@@ -30,8 +35,24 @@ from torch import nn
 
 from ..ops.resize import resize_area_int, resize_bicubic, resize_bicubic_up
 
-__all__ = ["ESPCN", "EDSR", "RCAN", "back_project", "depth_to_space",
+__all__ = ["ESPCN", "EDSR", "RCAN", "Conv2d", "Linear", "back_project", "depth_to_space",
            "shuffle_channel_order", "_shuffle_factors"]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that runs in the type of its input, casting its
+    parameters to it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that runs in the type of its input, casting its
+    parameters to it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 def depth_to_space(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -95,14 +116,14 @@ class ESPCN(nn.Module):
         self.scale = scale
         self.dtype = dtype
         half = features // 2
-        self.conv_in = nn.Conv2d(channels, features, 5, padding=2)
-        self.conv_mid = nn.Conv2d(features, half, 3, padding=1)
+        self.conv_in = Conv2d(channels, features, 5, padding=2)
+        self.conv_mid = Conv2d(features, half, 3, padding=1)
         self.factors = _shuffle_factors(scale) if scale > 1 else []
         self.up_convs = nn.ModuleList(
-            nn.Conv2d(half, half * f * f, 3, padding=1) for f in self.factors[:-1]
+            Conv2d(half, half * f * f, 3, padding=1) for f in self.factors[:-1]
         )
         out = channels * self.factors[-1] ** 2 if self.factors else channels
-        self.conv_out = nn.Conv2d(half, out, 3, padding=1)
+        self.conv_out = Conv2d(half, out, 3, padding=1)
         self.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -116,8 +137,8 @@ class ESPCN(nn.Module):
 class _ResBlock(nn.Module):
     def __init__(self, features: int, res_scale: float):
         super().__init__()
-        self.conv0 = nn.Conv2d(features, features, 3, padding=1)
-        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv0 = Conv2d(features, features, 3, padding=1)
+        self.conv1 = Conv2d(features, features, 3, padding=1)
         self.res_scale = res_scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -132,10 +153,10 @@ class _CABlock(nn.Module):
 
     def __init__(self, features: int, reduction: int, res_scale: float):
         super().__init__()
-        self.conv0 = nn.Conv2d(features, features, 3, padding=1)
-        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
-        self.att0 = nn.Conv2d(features, features // reduction, 1)
-        self.att1 = nn.Conv2d(features // reduction, features, 1)
+        self.conv0 = Conv2d(features, features, 3, padding=1)
+        self.conv1 = Conv2d(features, features, 3, padding=1)
+        self.att0 = Conv2d(features, features // reduction, 1)
+        self.att1 = Conv2d(features // reduction, features, 1)
         self.res_scale = res_scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -165,16 +186,16 @@ class EDSR(nn.Module):
         self.channels = channels
         self.dtype = dtype
         block = block or (lambda: _ResBlock(features, res_scale))
-        self.head = nn.Conv2d(channels, features, 3, padding=1)
+        self.head = Conv2d(channels, features, 3, padding=1)
         self.blocks = nn.ModuleList(block() for _ in range(num_blocks))
-        self.body_out = nn.Conv2d(features, features, 3, padding=1)
+        self.body_out = Conv2d(features, features, 3, padding=1)
         factors = _shuffle_factors(scale) if scale > 1 else []
         self.factors = factors
         self.up_convs = nn.ModuleList(
-            nn.Conv2d(features, features * f * f, 3, padding=1) for f in factors[:-1]
+            Conv2d(features, features * f * f, 3, padding=1) for f in factors[:-1]
         )
         tail_out = channels * factors[-1] ** 2 if factors else channels
-        self.tail = nn.Conv2d(features, tail_out, 3, padding=1)
+        self.tail = Conv2d(features, tail_out, 3, padding=1)
         self.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -9,17 +9,21 @@ port never loads them. Parameters are handed in instead:
 - :func:`convert_flax_params` turns a reference parameter tree (numpy
   arrays, as JAX loads it on the CPU) into the port's state dict;
 - :func:`seeded_params` makes random parameters at a net's full width
-  from a seed, with a non-zero tail so the net changes the pixels.
+  from a seed, with a non-zero tail so the net changes the pixels;
+- :func:`load_checkpoint` reads the state dict the port's trainer saves
+  (``models/train.save_checkpoint``) at ``{dir}/{name}_x{scale}.pt``.
 
 :func:`build_model` counts handed-in parameters as trained (the pipeline
 then skips back-projection, as the reference does for its packaged nets,
-sr_module.py:749). Without parameters it builds the zero-tail net, which
-is exact bicubic, and reports it untrained.
+sr_module.py:749). Without parameters it builds the from-scratch init of
+:func:`init_params` (flax's: LeCun-normal kernels, zero biases, a zero
+last conv), which is exact bicubic, and reports it untrained.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
@@ -36,6 +40,9 @@ __all__ = [
     "build_model",
     "convert_flax_params",
     "seeded_params",
+    "init_params",
+    "checkpoint_path",
+    "load_checkpoint",
 ]
 
 
@@ -172,6 +179,45 @@ def seeded_params(
     return sd
 
 
+def init_params(name: str, scale: int, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """The from-scratch parameters of ``name`` at ``scale``, drawn from
+    ``seed`` with the distributions flax's ``module.init`` uses
+    (``srs_tpu/models/nets.py:138-290``): LeCun-normal weights (a normal of
+    std sqrt(1 / fan_in) / 0.8796, truncated at two of its stds), zero
+    biases, and a zero last conv (``tail`` or ``conv_out``), so the net is
+    exact bicubic (or the identity polish). The values are the port's own
+    draw, not flax's."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, ref in _make(name, scale, torch.float32).state_dict().items():
+        if key.endswith("bias") or key.startswith(_LAST_CONVS):
+            sd[key] = torch.zeros_like(ref)
+            continue
+        std = math.sqrt(1.0 / ref[0].numel()) / 0.87962566103423978  # fan-in
+        sd[key] = torch.nn.init.trunc_normal_(torch.empty(ref.shape), std=std, a=-2.0 * std,
+                                              b=2.0 * std, generator=gen)
+    return sd
+
+
+def checkpoint_path(name: str, scale: int, checkpoint_dir: str) -> str:
+    """Where the port's trainer keeps ``name`` at ``scale``."""
+    return os.path.join(os.path.abspath(os.path.expanduser(checkpoint_dir)),
+                        f"{name}_x{scale}.pt")
+
+
+def load_checkpoint(name: str, scale: int,
+                    checkpoint_dir: Optional[str]) -> Optional[Dict[str, torch.Tensor]]:
+    """The state dict saved for ``name`` at ``scale`` under
+    ``checkpoint_dir`` (on the CPU), or None when there is none. The
+    reference's orbax checkpoints are never read."""
+    if not checkpoint_dir:
+        return None
+    path = checkpoint_path(name, scale, checkpoint_dir)
+    if not os.path.isfile(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def build_model(
     name: str,
     scale: int = 2,
@@ -179,21 +225,28 @@ def build_model(
     dtype: str | torch.dtype = "bfloat16",
     params_dtype: str | torch.dtype = "float32",
     device: str | torch.device = "cuda",
+    master_weights: bool = False,
 ) -> Tuple[torch.nn.Module, bool]:
     """(net in eval mode on ``device``, trained) for a registry entry or
     ``cond_polish``; the card by default (raises without one).
 
     ``params`` (a state dict, e.g. from :func:`convert_flax_params`) count
-    as trained; without them the net is the zero-tail init (exact bicubic,
-    or the identity polish; untrained). The parameters are rounded to ``params_dtype`` and held in
-    the computation type ``dtype``: the values flax computes with when it
-    stores ``params_dtype`` and casts at each convolution."""
+    as trained; without them the net is :func:`init_params`' from-scratch
+    init (exact bicubic, or the identity polish; untrained). The
+    parameters are rounded to ``params_dtype``. For serving they are then
+    held in the computation type ``dtype``: the values flax computes with
+    when it stores ``params_dtype`` and casts at each convolution. With
+    ``master_weights`` they stay in ``params_dtype`` and each convolution
+    casts them to ``dtype`` as it runs (the trainer's master weights); the
+    convolutions see the same values either way. Gradients stay off."""
     dev = resolve_device(device)
     compute = _torch_dtype(dtype)
+    stored = _torch_dtype(params_dtype)
     module = _make(name, scale, compute)
     trained = params is not None
-    sd = dict(params) if trained else seeded_params(name, scale, seed=0, tail_gain=0.0)
-    stored = _torch_dtype(params_dtype)
+    sd = dict(params) if trained else init_params(name, scale, seed=0)
+    if master_weights:
+        module = module.to(stored)
     module = module.to(device=dev)
     module.load_state_dict({k: v.to(stored) for k, v in sd.items()})
     module.eval().requires_grad_(False)

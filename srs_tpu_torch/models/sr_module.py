@@ -1,7 +1,7 @@
-"""SR engine (port of ``srs_tpu/models/sr_module.py``, all but ``zssr``).
+"""SR engine (port of ``srs_tpu/models/sr_module.py``).
 
 The batch path the pipeline runs, ``upscale_tiles`` (reference 672-751),
-serves every provider but ``zssr``:
+serves every provider:
 
 - ``quality``: the quality net of the step (per-scale selection,
   ``select_quality_model`` 207-223), back-projection (IBP) for untrained
@@ -13,6 +13,10 @@ serves every provider but ``zssr``:
   (``_fusion_for`` 287-313; ``name+`` members as their self-ensemble),
   falling back to ``quality`` where fewer than two are trained;
 - ``bicubic`` and ``shrink`` (``bicubic + alpha * (net - bicubic)``);
+- ``zssr``: the net ``zssr_prepare`` (reference 612-650) tuned on the
+  input itself, at the scale it was tuned for, with no IBP and no
+  self-ensemble; at another scale the quality net serves, as for
+  ``quality``;
 
 with the dihedral self-ensemble (``_dihedral_ensemble`` 101-121) when
 ``config.self_ensemble`` is on, and the prompt-conditioned polish
@@ -26,12 +30,18 @@ the ``upscale`` dispatcher, ``retry_with_backoff`` and
 ``_deterministic_seed``; ``seed_generator`` takes the place of the
 reference's ``fold_seed`` (a ``torch.Generator`` seeded from the content
 hash).
+
+Weights are handed in, or read from ``config.checkpoint_dir``, where the
+port's trainer saves them (``{name}_x{scale}.pt``,
+``registry.load_checkpoint``); either way the net counts as trained.
 """
 
 from __future__ import annotations
 
 import hashlib
 import io
+import os
+import re
 import time
 from dataclasses import dataclass, field
 from enum import Enum
@@ -52,7 +62,7 @@ from .conditioning import cond_vector
 from .fusion import load_fusion
 from .nets import back_project
 from .prompts import PromptTemplateManager
-from .registry import build_model
+from .registry import MODEL_REGISTRY, build_model, load_checkpoint
 from .routing import route_quality_model
 from .selection import panel_best_model
 
@@ -66,7 +76,7 @@ __all__ = [
 ]
 
 # Providers whose nets are the quality tier's; ``fast`` serves the fast net.
-QUALITY_ROLE = ("quality", "hybrid", "fusion", "shrink")
+QUALITY_ROLE = ("quality", "hybrid", "fusion", "shrink", "zssr")
 
 
 class UpscaleProvider(Enum):
@@ -186,7 +196,9 @@ class SuperResolutionModule:
 
     ``weights`` maps ``(net name, scale)`` to a state dict; a net with
     weights counts as trained (``("espcn_polish", 1)`` for the hybrid
-    polish, ``("cond_polish", 1)`` for the conditioned polish). With
+    polish, ``("cond_polish", 1)`` for the conditioned polish). The
+    state dicts the trainer saved in ``config.checkpoint_dir`` join them
+    (handed-in weights win). With
     ``config.per_scale_selection`` each quality step serves the panel-best
     trained net at its scale (``models/selection.py``); with
     ``config.auto_route`` damaged inputs serve the robust net when it is
@@ -211,6 +223,25 @@ class SuperResolutionModule:
         # bfloat16 nets of the SR-gain probe, built from the same weights
         self.probe_nets: Dict = {}
         self._digests: Dict[Tuple[str, int], str] = {}
+        # scale -> the net zssr_prepare tuned there (in the compute type), and its record
+        self.zssr_nets: Dict[int, torch.nn.Module] = {}
+        self.zssr_info: Dict[int, Dict[str, Any]] = {}
+        self._load_saved()
+
+    def _load_saved(self) -> None:
+        """Add the trainer's state dicts under ``config.checkpoint_dir``
+        (``{name}_x{scale}.pt`` of a registry net or ``cond_polish``) to
+        ``weights``, unless weights for that net were handed in."""
+        d = self.config.checkpoint_dir
+        if not d or not os.path.isdir(os.path.expanduser(d)):
+            return
+        for fname in sorted(os.listdir(os.path.expanduser(d))):
+            m = re.fullmatch(r"(.+)_x(\d+)\.pt", fname)
+            if m is None or (m[1] not in MODEL_REGISTRY and m[1] != "cond_polish"):
+                continue
+            key = (m[1], int(m[2]))
+            if key not in self.weights:
+                self.weights[key] = load_checkpoint(key[0], key[1], d)
 
     # -- nets ---------------------------------------------------------------
     def is_trained(self, name: str, scale: int) -> bool:
@@ -327,6 +358,8 @@ class SuperResolutionModule:
         polish (``espcn_polish``). The conditioned polish is not listed."""
         if provider == "bicubic":
             return []
+        if provider == "zssr" and scale in self.zssr_nets:
+            return [(self.zssr_info[scale]["base"], 1)]
         ens = 8 if self.config.self_ensemble else 1
         fused = self._fusion_for(scale) if provider == "fusion" and model is None else None
         if fused is not None:
@@ -348,6 +381,8 @@ class SuperResolutionModule:
                    category: Optional[str] = None) -> None:
         """Build every net ``upscale_tiles`` will serve on ``ladder``."""
         for s in ladder:
+            if provider == "zssr" and int(s) in self.zssr_nets:
+                continue  # the tuned net is built
             for name, _passes in self.step_members(int(s), provider, model):
                 role = "polish" if name == "espcn_polish" else self.role(provider)
                 self._net(role, int(s), name)
@@ -385,6 +420,9 @@ class SuperResolutionModule:
             bic = resize_bicubic_up(tiles, scale)
             out = (bic + float(np.float32(alpha)) * (net_out - bic)).clamp_(0, 255)
             return self._conditioned(out, category)
+        if provider == "zssr" and scale in self.zssr_nets:
+            # trained on the input itself: no IBP, no ensemble
+            return self._conditioned(self.zssr_nets[scale](tiles).clamp_(0, 255), category)
         ensemble = self.config.self_ensemble
         if provider == "fusion" and model is None:
             fused = self._fusion_for(scale)
@@ -410,6 +448,67 @@ class SuperResolutionModule:
         if steps > 0 and not trained:
             out = back_project(out, tiles, scale, steps=steps)
         return self._conditioned(out.clamp_(0, 255), category)
+
+    # -- zero-shot SR --------------------------------------------------------
+    def zssr_base(self, scale: int) -> Tuple[str, float]:
+        """(net zssr tunes, its learning rate) at ``scale``: the quality net
+        when it is trained there, at 1e-4 (its corpus prior, tuned
+        gently), else the fast net, at 1e-4 if trained and 5e-4 if not
+        (the from-scratch rate) (reference sr_module.py:634-640)."""
+        base = (self.config.quality_model if self.is_trained(self.config.quality_model, scale)
+                else self.config.fast_model)
+        return base, (1e-4 if self.is_trained(base, scale) else 5e-4)
+
+    def zssr_prepare(
+        self,
+        image,
+        scale: int = 2,
+        steps: int = 150,
+        patch: int = 48,
+        batch: int = 8,
+        lr: Optional[float] = None,
+    ) -> None:
+        """Tune a copy of the base net (:meth:`zssr_base`) on ``image`` (an
+        (H, W, C) array or tensor in [0, 255]) for ``steps`` steps
+        (``models/train.zssr_finetune``: its own area-degraded patches,
+        seed 0), then keep it for ``provider="zssr"`` at ``scale`` until
+        the next call at that scale. Float32 master weights train, the
+        convolutions run in ``compute_dtype``; the tuned net serves in the
+        compute type like any other. The base's weights are unchanged.
+        Trains with gradients on even when called inside
+        ``torch.inference_mode`` (``process()`` is). Its base, learning
+        rate, steps, seconds and first and last loss go to
+        ``zssr_info[scale]``."""
+        from .train import zssr_finetune
+
+        t0 = time.time()
+        base, default_lr = self.zssr_base(scale)
+        lr = default_lr if lr is None else lr
+        losses: Dict[int, torch.Tensor] = {}
+
+        def on_step(step: int, metrics: Dict[str, torch.Tensor]) -> None:
+            if step in (0, steps - 1):
+                losses[step] = metrics["loss"]
+
+        with torch.inference_mode(False), torch.enable_grad():
+            img = self._to_batch(image)[0][0].clone()
+            net, _ = build_model(base, scale, self.weights.get((base, scale)),
+                                 dtype=self.config.compute_dtype,
+                                 params_dtype=self.config.params_dtype, device=self.device,
+                                 master_weights=True)
+            tuned = zssr_finetune(net, img, scale=scale, steps=steps, patch=patch, batch=batch,
+                                  lr=lr, on_step=on_step)
+            serving, _ = build_model(base, scale, tuned.state_dict(),
+                                     dtype=self.config.compute_dtype,
+                                     params_dtype=self.config.params_dtype, device=self.device)
+        self.zssr_nets[scale] = serving
+        self.zssr_info[scale] = {
+            "base": base, "base_trained": self.is_trained(base, scale), "lr": lr,
+            "steps": steps, "patch": patch, "batch": batch,
+            "first_loss": float(losses[0]) if 0 in losses else None,
+            "last_loss": float(losses[steps - 1]) if steps - 1 in losses else None,
+            "seconds": time.time() - t0,
+        }
 
     def _conditioned(self, out: torch.Tensor, category: Optional[str]) -> torch.Tensor:
         """The prompt-conditioned polish of ``out`` for ``category``,

@@ -1,14 +1,19 @@
 """SuperResolutionPipeline (port of ``srs_tpu/pipeline.py``).
 
 Stages, as the reference runs them (pipeline.py:896-1392), for the
-providers ``quality``, ``fast``, ``hybrid``, ``fusion`` and ``bicubic``:
+providers ``quality``, ``fast``, ``hybrid``, ``fusion``, ``bicubic`` and
+``zssr``:
 
 1. tiling: load the image and upload it once; for ``quality``,
    ``hybrid`` and ``fusion``, route it (degradation estimate, then the
    SR-gain probe, which may send the job to the ``shrink`` or ``bicubic``
    ladder with a per-job alpha); choose the ladder from the nets the
    provider serves; mirror-pad and cut one [N, B, B, 3] batch;
-2. super-resolution: the tiles are booked as scheduler tasks
+2. super-resolution: for ``zssr`` (asked for, or the SR-gain probe's
+   route with ``sr_gain_route="zssr"``) a copy of the base net is first
+   tuned on the input itself for ``zssr_steps`` steps
+   (``SuperResolutionModule.zssr_prepare``), outside the retry ladder, as
+   the reference does; then the tiles are booked as scheduler tasks
    (``scheduler/scheduler.py``); with ``enable_checkpoint`` the tile
    store is probed first and a full hit skips the nets, a partial hit
    upscales only the missing tiles. Otherwise the ladder (e.g. [3, 3] for
@@ -120,13 +125,11 @@ _ROUTED_PROVIDERS = ("quality", "hybrid", "fusion")
 # Options of the reference that this port does not serve yet, with the
 # values it does serve.
 _NOT_PORTED = {
-    "provider": ("quality", "fast", "hybrid", "bicubic", "fusion"),
+    "provider": ("quality", "fast", "hybrid", "bicubic", "fusion", "zssr"),
     "blend_method": ("laplacian", "multi_band", "weighted", "weighted_average", "feather",
                      "gradient", "gradient_domain", "poisson"),
-    "sr_gain_route": ("shrink", "bicubic"),
+    "sr_gain_route": ("shrink", "bicubic", "zssr"),
 }
-# zssr fine-tunes the net on each input: it comes with the training slice.
-_TRAINING_SLICE = "zssr trains the net per image (ROADMAP Queue 1, item 1: the training slice)"
 _ROI = ("roi_regions: commercial QA of regions of interest is not ported yet "
         "(ROADMAP Queue 1, item 2: commercial QA and roi_regions)")
 
@@ -148,7 +151,7 @@ class PipelineConfig:
     blend_method: str = "laplacian"
     num_pyramid_levels: int = 6
     enable_qa: bool = True
-    provider: str = "quality"  # quality | fast | hybrid | bicubic | fusion
+    provider: str = "quality"  # quality | fast | hybrid | bicubic | fusion | zssr
     quality_model: str = "edsr_xl"
     fast_model: str = "espcn"  # the fast net (provider fast)
     # Probe each input's noise and blur (damaged inputs serve the robust
@@ -157,7 +160,8 @@ class PipelineConfig:
     robust_model: str = "edsr_l_robust"
     # Below this probe gain (dB over bicubic) the job serves sr_gain_route:
     # "shrink" (bicubic + alpha * (net - bicubic), alpha fitted on the
-    # probe's crops) or "bicubic".
+    # probe's crops), "bicubic", or "zssr" (the net tuned on the input
+    # first, zssr_steps steps).
     sr_gain_floor: float = 0.0
     sr_gain_route: str = "shrink"
     # Texture-tier nets the shrink route may serve instead of the
@@ -171,8 +175,11 @@ class PipelineConfig:
     # A prompt template category (models/prompts.py) for the conditioned
     # polish after the ladder; None leaves the output unconditioned.
     prompt_category: Optional[str] = None
-    # Directory whose EVAL.json selection reads before the packaged one.
+    # Directory whose EVAL.json selection reads before the packaged one,
+    # and whose trained nets ({name}_x{scale}.pt, models/train.py) count
+    # as trained.
     checkpoint_dir: Optional[str] = None
+    zssr_steps: int = 150  # steps zssr tunes the net on each input
     ibp_steps: int = 8  # back-projection steps; only untrained nets use them
     content_aware: bool = False  # seams avoid faces, text and salient regions
     bit_depth: int = 8  # 8 or 16 (16-bit needs a TIFF output)
@@ -194,9 +201,8 @@ class PipelineConfig:
         for name, served in _NOT_PORTED.items():
             value = getattr(self, name)
             if value not in served:
-                why = _TRAINING_SLICE if value == "zssr" else "ROADMAP Queue 1"
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet ({why}); use one of {served!r}")
+                raise NotImplementedError(f"{name}={value!r} is not ported yet (ROADMAP "
+                                          f"Queue 1); use one of {served!r}")
         if self.bit_depth not in (8, 16):
             raise ValueError(f"bit_depth must be 8 or 16, got {self.bit_depth}")
 
@@ -479,8 +485,8 @@ class SuperResolutionPipeline:
 
     # -- stage 2 with failure recovery (reference pipeline.py:542-623) ------
     # Where a failed provider degrades to; any other to bicubic.
-    _FALLBACK_PROVIDERS = {"quality": "fast", "hybrid": "fast", "fusion": "fast",
-                           "fast": "bicubic"}
+    _FALLBACK_PROVIDERS = {"quality": "fast", "hybrid": "fast", "zssr": "fast",
+                           "fusion": "fast", "fast": "bicubic"}
 
     def _run_stage2(self, image_dev: torch.Tensor, tiles: torch.Tensor, ladder: List[int],
                     layout, tasks: List[Task], provider: str, model: Optional[str],
@@ -589,10 +595,13 @@ class SuperResolutionPipeline:
         layout and padding, IBP steps, dtypes, the category and the
         conditioned polish's weights, per step each net with its passes and
         weights (per-scale selection, routing, the fusion members and
-        their weights, the self-ensemble, the hybrid polish), and this
-        job's alpha on the shrink route. The reference keys on net names
-        (its weights are its packaged checkpoints) and on knobs the port
-        lacks (zssr and seedream steps)."""
+        their weights, the self-ensemble, the hybrid polish; for zssr the
+        base net's), ``zssr_steps`` on zssr, and this job's alpha on the
+        shrink route. The reference keys on net names (its weights are its
+        packaged checkpoints), ``zssr_steps`` and a knob the port lacks
+        (seedream steps). A zssr key holds the base's weights and the
+        steps, not the tuned weights: tuning on the card is not bitwise
+        repeatable, and the same base and steps tune the same net."""
         if not self.config.enable_checkpoint:
             return None
         cfg, sr = self.config, self.sr_module
@@ -607,7 +616,8 @@ class SuperResolutionPipeline:
         sig = [image_hash, provider, [int(s) for s in ladder], cfg.ibp_steps, int(layout.block),
                int(layout.overlap), cfg.padding_mode, cfg.compute_dtype, cfg.params_dtype,
                category, sr.weights_digest("cond_polish", 1) if sr.conditions(category) else None,
-               steps, float(alpha) if provider == "shrink" and alpha is not None else None]
+               steps, float(alpha) if provider == "shrink" and alpha is not None else None,
+               cfg.zssr_steps if provider == "zssr" else None]
         return "sr-" + hashlib.md5(json.dumps(sig).encode()).hexdigest()
 
     @staticmethod
@@ -727,6 +737,8 @@ class SuperResolutionPipeline:
             "conditioned": sr.conditions(category),
             "sr_gain_probe": route_info["sr_gain"],
             "sr_gain_alpha": alpha if served == "shrink" else None,
+            "zssr": (sr.zssr_info.get(int(ladder[0])) if served == "zssr" and ladder
+                     else None),
             "routing": route_info,
         }
 
@@ -916,7 +928,9 @@ class SuperResolutionPipeline:
         then the order given: one submit time for the whole batch). With
         ``max_concurrent > 1`` they run on that many worker threads, and a
         semaphore lets one job at a time through the device stages (SR to
-        QA), so one job's save overlaps the next one's SR and blend."""
+        QA), so one job's save overlaps the next one's SR and blend. With
+        ``provider="zssr"`` the jobs run one after another, as in the
+        reference: each tunes the net the SR module holds."""
         for job in jobs:
             if job.get("roi_regions"):
                 raise NotImplementedError(_ROI)
@@ -929,6 +943,9 @@ class SuperResolutionPipeline:
 
         ordered = sorted(enumerate(jobs), key=lambda it: priority(it[1]))
         results: List[Optional[PipelineResult]] = [None] * len(jobs)
+        if self.config.provider == "zssr":
+            # each job tunes the net the module holds: no two may interleave
+            max_concurrent = 1
         if max_concurrent <= 1 or len(jobs) < 2:
             for idx, job in ordered:
                 results[idx] = self.process(job["input"], job["output"], prompt=job.get("prompt"))
@@ -1007,6 +1024,9 @@ class SuperResolutionPipeline:
             device_stages.callback(sem.release)
         asked = routed_provider or cfg.provider
         with self._stage("super_resolution", stage_times):
+            if asked == "zssr" and ladder:
+                # tune on the input itself first (reference pipeline.py:1036-1044)
+                self.sr_module.zssr_prepare(image, scale=int(ladder[0]), steps=cfg.zssr_steps)
             tasks = self._book_tasks(layout.num_tiles, output_path, scale_total)
             up_tiles, layout, ladder, served, model, record = self._super_resolve(
                 image_dev, tiles, ladder, layout, asked, routed_model, alpha, category,

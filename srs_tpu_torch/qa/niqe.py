@@ -1,4 +1,4 @@
-"""Full NIQE and the trained BRISQUE (port of ``srs_tpu/qa/niqe.py:61-345``).
+"""Full NIQE and the trained BRISQUE (port of ``srs_tpu/qa/niqe.py``).
 
 Per-patch natural-scene-statistics features (a GGD fit of the MSCN
 coefficients and AGGD fits of their four orientation products, at two
@@ -9,7 +9,8 @@ regressor) run on the host in float64, as in the reference.
 The G/AGGD shape parameter is the entry of a moment-ratio table (alpha
 from 0.2 to 10 in steps of 0.001) nearest the sample ratio, as the
 reference picks it; the table is built from ``math.lgamma`` in float64
-and rounded to float32. The packaged models are read by path from
+and rounded to float32. ``niqe_features`` and ``fit_pristine_model`` fit
+a pristine model of one's own from a set of images. The packaged models are read by path from
 ``srs_tpu/qa/data`` in this checkout; the module beside them is never
 imported.
 """
@@ -35,6 +36,8 @@ __all__ = [
     "brisque_scores",
     "brisque_score",
     "image_features36",
+    "niqe_features",
+    "fit_pristine_model",
 ]
 
 DATA_DIR = os.path.join(REFERENCE_DIR, "qa", "data")
@@ -129,6 +132,42 @@ def _sharp(patches: torch.Tensor) -> torch.Tensor:
     mu = gaussian_blur(g, 7, 7.0 / 6.0)
     sigma_sq = gaussian_blur(g * g, 7, 7.0 / 6.0) - mu * mu
     return torch.sqrt(torch.clamp(sigma_sq, min=0.0)).mean(dim=(-2, -1))
+
+
+def niqe_features(image: torch.Tensor, patch: int = 96, select: float = 0.75) -> np.ndarray:
+    """[P, 36] features of one (H, W, C) image over its non-overlapping
+    patch grid, keeping the patches whose mean local contrast reaches
+    ``select`` x the sharpest one's (all of them with ``select <= 0``);
+    one whole-image vector when the image is smaller than a patch."""
+    g = _gray(torch.as_tensor(image)[None]).float()[0]
+    h, w = g.shape[-2], g.shape[-1]
+    ph, pw = h // patch, w // patch
+    if ph == 0 or pw == 0:
+        return image_features36(g[None]).cpu().numpy()
+    g = g[: ph * patch, : pw * patch]
+    patches = g.reshape(ph, patch, pw, patch).permute(0, 2, 1, 3).reshape(-1, patch, patch)
+    feats = image_features36(patches).cpu().numpy()
+    if select <= 0.0:
+        return feats
+    sharp = _sharp(patches).cpu().numpy()
+    keep = sharp >= select * float(sharp.max())
+    return feats[keep] if keep.any() else feats
+
+
+def fit_pristine_model(images, patch: int = 96, shrink: float = 0.0) -> Dict[str, np.ndarray]:
+    """The pristine Gaussian (``mu``, ``cov``, float64) of the feature
+    vectors of ``images`` (each (H, W, C) in [0, 255]; rows with a
+    non-finite value dropped). ``shrink`` pulls the covariance toward its
+    diagonal, ``(1 - s) cov + s diag(cov)``; the packaged model used 0.1."""
+    f = np.concatenate([niqe_features(torch.as_tensor(np.asarray(im, np.float32))
+                                      if not isinstance(im, torch.Tensor) else im.float(), patch)
+                        for im in images], axis=0)
+    f = f[np.all(np.isfinite(f), axis=1)]
+    mu = f.mean(axis=0)
+    cov = np.cov(f, rowvar=False)
+    if shrink > 0.0:
+        cov = (1.0 - shrink) * cov + shrink * np.diag(np.diag(cov))
+    return {"mu": mu.astype(np.float64), "cov": cov.astype(np.float64)}
 
 
 @lru_cache(maxsize=1)

@@ -119,8 +119,6 @@ def test_png_output_and_qa_report(png, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,needle", [
-    (["--provider", "zssr"], "provider='zssr' is not ported"),
-    (["--zssr-steps", "10"], "--zssr-steps"),
     (["--mesh", "data=2"], "--mesh"),
     (["--profile", "trace"], "--profile"),
 ])
@@ -129,9 +127,28 @@ def test_unported_flags_exit_nonzero_with_their_message(png, tmp_path, capsys, a
     assert main(["process", png, out, *FLAGS, *args]) == 2
     err = capsys.readouterr().err
     assert needle in err and "not ported" in err and "ROADMAP" in err
-    if "zssr" in args[0] + args[-1]:
-        assert "the training slice" in err
     assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("args", [["--provider", "zssr", "--zssr-steps", "2"],
+                                  ["--zssr-steps", "10"]])
+def test_zssr_flags_run(tmp_path, capsys, args):
+    """``--provider zssr`` tunes the net on the input (its 48-px patches need
+    a 96-px input at x2) and serves it; ``--zssr-steps`` without it changes
+    nothing (the quality path), as in the reference."""
+    rng = np.random.default_rng(12)
+    png = str(tmp_path / "in.png")
+    save_image(png, rng.integers(0, 256, (96, 112, 3)).astype(np.uint8))
+    flags = ["--target", "224x192", "--block-size", "64", "--quality-model", "edsr_m",
+             "--pin-quality-model", "--no-qa", "--device", "cpu",
+             "--checkpoint-dir", str(tmp_path / "none")]
+    out = str(tmp_path / "o.tiff")
+    assert main(["process", png, out, *flags, *args]) == 0
+    assert "OK" in capsys.readouterr().out and read_tiff(out).shape == (192, 224, 3)
+    if "--provider" not in args:
+        plain = str(tmp_path / "plain.tiff")
+        assert main(["process", png, plain, *flags]) == 0
+        np.testing.assert_array_equal(read_tiff(out), read_tiff(plain))
 
 
 def test_failure_exits_one(tmp_path, capsys):

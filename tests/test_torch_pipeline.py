@@ -150,9 +150,15 @@ def test_process_returns_failure_instead_of_raising(image, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [("provider", "zssr"), ("sr_gain_route", "zssr")])
-def test_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="not ported.*the training slice"):
-        PipelineConfig(device="cpu", **{field: value})
+def test_zssr_options_are_served(field, value):
+    """zssr is ported: the options build a pipeline with the reference's
+    defaults (150 tuning steps); tests/test_torch_zssr.py runs them."""
+    cfg = PipelineConfig(device="cpu", **{field: value})
+    assert getattr(cfg, field) == getattr(JaxConfig(**{field: value}), field) == value
+    assert cfg.zssr_steps == JaxConfig().zssr_steps == 150
+    assert SuperResolutionPipeline(cfg).config is cfg
+    with pytest.raises(NotImplementedError, match="not ported"):
+        PipelineConfig(device="cpu", provider="seedream")
 
 
 @pytest.mark.parametrize("size,target", [((1280, 720), "100MP"), ((720, 1280), "150MP"),
