@@ -104,7 +104,27 @@ in order, each printing one JSON line with its seconds:
    float32 with TF32 off: five zssr steps (espcn) and five ``train_step``
    steps (edsr_m) with per-step losses within a relative 1e-3, and zssr
    in bfloat16 with the tuned nets' outputs above 40 dB PSNR;
-16. kernel_shapes: K1 and K2 timed at every distinct (input, output)
+16. library: the library API at full size. ``process(roi_regions=...)``
+   on the bench path's pipeline (a text, product, face and brand region
+   in input coordinates): the commercial keys and score, and the QA
+   stage's seconds beside the bench path's; a two-job ``process_batch``
+   whose ROI job gives the same commercial keys. Then
+   ``TilingModule.split_image`` (6 tiles of 512) and ``merge_tiles``
+   (the input back within 1e-3); the tiles upscaled x9 by the SR module
+   (seeded ``edsr_xl``, [3, 3]); each ``BlendingModule`` fusion into the
+   6480x11520 output (seconds, peak memory, K1/K2 launches by shape);
+   ``detect_seams``, ``repair_seams`` and ``compute_blend_quality`` on the
+   Laplacian result; ``poisson_fusion`` with the multigrid solver at full
+   canvas size (a 2048-px mask; K1 restricts, K2 prolongs) with its final
+   residual max |lap(u) - div| in the mask beside the Jacobi solver's;
+   and ``python3 -m srs_tpu_torch.examples`` once in a subprocess. Every
+   run that launches a kernel is first run with each launch held against
+   the plain version, then timed with the counts reset;
+17. library_reference: the library API card against CPU at the CPU
+   tests' sizes (float32, TF32 off): the five fusions, the multigrid and
+   Jacobi clones in each mode, split and merge, Canny, the commercial
+   metrics with ROIs and a bicubic ``process(roi_regions=...)``;
+18. kernel_shapes: K1 and K2 timed at every distinct (input, output)
    shape that the warm-up runs launched, each with its launches per
    path, bound and share of the bound.
 
@@ -115,7 +135,7 @@ with its shape) and by op, and the in-place adds by input shape; and a
 zssr tune and a trainer run, each 30 steps of edsr_xl x3, with the busy
 share, device launches a step and time by kernel and op.
 Then it prints a ``done`` line with the total seconds, the kernels' JSON
-line (each kernel's entry with its ``shapes`` of phase 16), the ``nvidia-smi``
+line (each kernel's entry with its ``shapes`` of phase 18), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Without a CUDA card, or without the port
 beside it, it exits with code 2 and prints no result. Outputs go to a
@@ -479,7 +499,8 @@ def pyramid_calls(K, on_call):
         on_call("pyr_up", x, out, dst_hw)
         return out
 
-    sites = [(pyramid, "pyr_down", down), (pyramid, "pyr_up", up), (blend, "pyr_up", up)]
+    sites = [(pyramid, "pyr_down", down), (pyramid, "pyr_up", up), (blend, "pyr_down", down),
+             (blend, "pyr_up", up)]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
     for mod, attr, fn in sites:
         setattr(mod, attr, fn)
@@ -606,9 +627,10 @@ def compare_bench_runs(info, report, cpu_info, cpu_report) -> dict:
             "report_diffs": diffs}
 
 
-def check_held(K, name: str, records) -> dict:
+def check_held(K, name: str, records, require_launch: bool = True) -> dict:
     """Every launch of a warm-up run was held against its plain version
-    (``records`` of :func:`held_against_plain`), within the tolerance.
+    (``records`` of :func:`held_against_plain`), within the tolerance, and
+    with ``require_launch`` each kernel launched at least once.
     Returns, per kernel, the calls, the worst error and each launch's
     [input shape, output shape, error]."""
     held = {}
@@ -619,7 +641,7 @@ def check_held(K, name: str, records) -> dict:
         h["shapes"].append([shape_in, shape_out, e])
     for kname, n in K.LAUNCHES.items():
         h = held.get(kname, {"calls": 0, "max_abs_err": 0.0})
-        if n == 0 or h["calls"] != n:
+        if (require_launch and n == 0) or h["calls"] != n:
             fail(f"{name}: {kname}: {n} launches in the warm-up run, {h['calls']} held "
                  "against the plain version")
         if h["max_abs_err"] > KERNEL_ATOL:
@@ -1776,6 +1798,411 @@ def train_reference(torch) -> dict:
     return out
 
 
+# -- the library API (phases 16 and 17) ----------------------------------------
+
+# Regions of interest of the library phase's process() in input (720x1280)
+# coordinates: one of each kind, the brand with its reference colour.
+LIBRARY_ROIS = [
+    {"type": "text", "bbox": [80, 60, 360, 90]},
+    {"type": "product", "bbox": [520, 180, 320, 320]},
+    {"type": "face", "bbox": [940, 120, 200, 240]},
+    {"type": "brand", "bbox": [60, 420, 240, 200], "reference_color": [200, 30, 30]},
+]
+LIBRARY_ROI_KEYS = ("text_sharpness_0", "text_contrast_0", "product_texture_1",
+                    "face_naturalness_2", "skin_tone_naturalness_2", "brand_color_delta_e_3",
+                    "brand_color_accuracy_3")
+COMMERCIAL_KEYS = ("global_sharpness", "high_frequency_ratio", "color_variance",
+                   "oversharpen_score", "artifact_score", "noise_level",
+                   "brightness_uniformity", "commercial_score")
+LIBRARY_FUSIONS = ("laplacian_fusion", "multi_band_fusion", "weighted_average_fusion",
+                   "feather_blend", "gradient_domain_fusion")
+# The input cut by TilingModule at the bench configuration's block (6
+# tiles of 512), upscaled x9 by seeded edsr_xl on the [3, 3] ladder, and
+# blended into the 720x1280 input's x9.
+LIBRARY_BLOCK, LIBRARY_TILES, LIBRARY_MODEL, LIBRARY_SCALE = 512, 6, "edsr_xl", 9
+LIBRARY_CANVAS = (MAIN_H * LIBRARY_SCALE, MAIN_W * LIBRARY_SCALE)
+CLONE_MASK = 2048  # side of the multigrid clone's square mask
+# Commercial metrics card against CPU, and batch against single call
+# (tests/test_torch_commercial.py): relative 1e-4, absolute 1e-6.
+COMMERCIAL_RTOL, COMMERCIAL_ATOL = 1e-4, 1e-6
+# The same four kinds at the card-against-CPU phase's small sizes.
+LIBRARY_ROIS_SMALL = [
+    {"type": "text", "bbox": [4, 6, 30, 20]},
+    {"type": "product", "bbox": [30, 10, 36, 40]},
+    {"type": "face", "bbox": [10, 30, 40, 30]},
+    {"type": "brand", "bbox": [40, 30, 40, 30], "reference_color": [200, 30, 30]},
+]
+EXAMPLE_SECTIONS = ("prompts", "sr_module", "tiling_and_blending", "quality_assessment",
+                    "scheduler", "pipeline")
+# K1's tolerance against its plain version: a coarse-mask sample nearer
+# than this to the multigrid's 0.999 cut could fall either side.
+MASK_CUT, MASK_CUT_TOL = 0.999, 6.1e-5
+
+
+def commercial_of(report: dict) -> dict:
+    """The commercial keys of a QA report (global and per ROI)."""
+    roi = ("text_", "product_", "face_", "skin_", "brand_")
+    return {k: v for k, v in report.items() if k in COMMERCIAL_KEYS or k.startswith(roi)}
+
+
+def commercial_mismatch(got: dict, want: dict) -> list:
+    """Keys whose values differ beyond the commercial tolerance (levels
+    must be equal), or that only one side has."""
+    bad = sorted(set(got) ^ set(want))
+    for k, v in want.items():
+        if k not in got:
+            continue
+        if isinstance(v, str):
+            if got[k] != v:
+                bad.append(k)
+        elif not abs(got[k] - v) <= max(COMMERCIAL_ATOL, COMMERCIAL_RTOL * abs(v)):
+            bad.append(k)
+    return bad
+
+
+def merge_held(*helds) -> dict:
+    """One :func:`check_held` record of several runs."""
+    out = {}
+    for held in helds:
+        for kname, h in held.items():
+            m = out.setdefault(kname, {"calls": 0, "max_abs_err": 0.0, "shapes": []})
+            m["calls"] += h["calls"]
+            m["max_abs_err"] = max(m["max_abs_err"], h["max_abs_err"])
+            m["shapes"] += h.get("shapes", [])
+    return out
+
+
+def held_then_timed(torch, K, name: str, fn, require_launch: bool = True):
+    """``fn()`` once with every K1/K2 launch held against its plain
+    version, then once timed (host clock to a synchronise) with the launch
+    counts set to 0 just before and read just after, and its peak memory.
+    Returns (result of the timed run, seconds, launches, held, peak GB)."""
+    K.reset_launches()
+    with held_against_plain(K) as records:
+        fn()
+    torch.cuda.synchronize()
+    held = check_held(K, name, records, require_launch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    return out, seconds, launches, held, torch.cuda.max_memory_allocated() / 1e9
+
+
+def library_roi(torch, K, tmp: str, image: np.ndarray, bench_pipe, bench_nums) -> dict:
+    """``process(roi_regions=...)`` on the bench path's pipeline and
+    flags, and a two-job ``process_batch`` in which one job carries the
+    regions."""
+    path = os.path.join(tmp, "out_library_roi.tiff")
+    res, seconds, launches, held, peak = held_then_timed(
+        torch, K, "library_roi", lambda: bench_pipe.process(image, path, roi_regions=LIBRARY_ROIS))
+    if not res.success:
+        fail(f"library: process(roi_regions) failed: {res.error_message}")
+    report = res.quality_report or {}
+    commercial = commercial_of(report)
+    missing = [k for k in LIBRARY_ROI_KEYS + COMMERCIAL_KEYS if k not in commercial]
+    numbers = [v for v in commercial.values() if not isinstance(v, str)]
+    if missing or not all(np.isfinite(numbers)):
+        fail(f"library: commercial keys missing or not finite: {missing} {commercial}")
+
+    jobs = [{"input": image, "output": os.path.join(tmp, "library_batch_0.tiff")},
+            {"input": image, "output": os.path.join(tmp, "library_batch_1.tiff"),
+             "roi_regions": LIBRARY_ROIS}]
+    K.reset_launches()
+    t0 = time.time()
+    batch = bench_pipe.process_batch(jobs, max_concurrent=2)
+    batch_s = time.time() - t0
+    batch_launches = dict(K.LAUNCHES)
+    if not all(r.success for r in batch):
+        fail(f"library: process_batch with ROIs failed: {[r.error_message for r in batch]}")
+    in_plain_job = commercial_of(batch[0].quality_report)
+    bad = commercial_mismatch(commercial_of(batch[1].quality_report), commercial)
+    if in_plain_job or bad:
+        fail(f"library: batch commercial keys: job without ROIs {sorted(in_plain_job)}, "
+             f"the ROI job against process() {bad}")
+    qa_s = res.stage_times["quality_assessment"]
+    return {
+        "rois": LIBRARY_ROIS, "commercial": commercial,
+        "commercial_score": commercial["commercial_score"],
+        "stage_times": res.stage_times, "elapsed_s": seconds, "peak_mem_gb": peak,
+        "qa_s": qa_s, "bench_qa_s": bench_nums["stage_times"]["quality_assessment"],
+        "qa_s_added": qa_s - bench_nums["stage_times"]["quality_assessment"],
+        "launches": launches, "held_against_plain": held,
+        "batch": {"jobs": 2, "max_concurrent": 2, "seconds": batch_s,
+                  "launches": batch_launches,
+                  "roi_job_stage_times": batch[1].stage_times},
+    }
+
+
+def library_blend(torch, K, tmp: str, image: np.ndarray) -> dict:
+    """TilingModule's split and merge at block 512; the 6 tiles upscaled
+    x9 by the SR module; every BlendingModule fusion into the 6480x11520
+    output; seams and blend quality on the Laplacian result; the multigrid
+    clone at full canvas size against the Jacobi one."""
+    from srs_tpu_torch.blending import (BlendingModule, TileInfo, _layout_from_tiles,
+                                        compute_blend_quality)
+    from srs_tpu_torch.config import ModelConfig
+    from srs_tpu_torch.models.sr_module import SuperResolutionModule
+    from srs_tpu_torch.ops import blend as B
+    from srs_tpu_torch.ops.weights import layout_weights
+    from srs_tpu_torch.tiling.tiling import TilingModule
+
+    out: dict = {}
+    tm = TilingModule(block_size=LIBRARY_BLOCK, overlap_ratio=0.2,
+                      cache_dir=os.path.join(tmp, "lib_tiles"), device="cuda")
+    t0 = time.time()
+    tiles = tm.split_image(image)
+    out["split_s"] = time.time() - t0
+    b = LIBRARY_BLOCK
+    if len(tiles) != LIBRARY_TILES or tiles[0].data.shape != (b, b, 3):
+        fail(f"library: split_image gave {len(tiles)} tiles of {tiles[0].data.shape}")
+    t0 = time.time()
+    merged = tm.merge_tiles(tiles, output_size=(MAIN_H, MAIN_W), scale=1)
+    out["merge_s"] = time.time() - t0
+    out["merge_max_abs_err"] = float(np.abs(merged - image).max())
+    if merged.shape != image.shape or out["merge_max_abs_err"] > 1e-3:
+        fail(f"library: merge_tiles {merged.shape}, max err {out['merge_max_abs_err']}")
+
+    sr = SuperResolutionModule(ModelConfig(quality_model=LIBRARY_MODEL, auto_route=False,
+                                           per_scale_selection=False), xl_weights(), "cuda")
+    batch = torch.from_numpy(np.stack([t.data for t in tiles])).cuda()
+    with torch.no_grad():
+        sr.upscale_tiles(batch[:1], 3)  # build the nets and cuDNN's plans
+        torch.cuda.synchronize()
+        t0 = time.time()
+        up = sr.upscale_tiles(sr.upscale_tiles(batch, 3), 3)
+        torch.cuda.synchronize()
+    out["upscale_s"] = time.time() - t0
+    del batch
+    if tuple(up.shape) != (LIBRARY_TILES, b * LIBRARY_SCALE, b * LIBRARY_SCALE, 3):
+        fail(f"library: upscaled tiles {tuple(up.shape)}")
+    infos = [TileInfo(up[i], t.metadata.global_x * LIBRARY_SCALE,
+                      t.metadata.global_y * LIBRARY_SCALE, t.metadata.row, t.metadata.col)
+             for i, t in enumerate(tiles)]
+    bm = BlendingModule(device="cuda")
+    t0 = time.time()
+    layout_weights(_layout_from_tiles(infos, torch.device("cuda"))[0], kind="distance",
+                   weight_type="cosine")
+    out["dense_weights_s"] = time.time() - t0
+
+    helds, launches, fusions, results = [], {"pyr_down": 0, "pyr_up": 0}, {}, {}
+    mean_in = image.mean(axis=(0, 1))
+    for name in LIBRARY_FUSIONS:
+        res, seconds, n, held, peak = held_then_timed(
+            torch, K, f"library_{name}",
+            lambda name=name: getattr(bm, name)(infos, output_shape=LIBRARY_CANVAS),
+            require_launch=name in ("laplacian_fusion", "multi_band_fusion"))
+        # float64 sums: a float32 running sum of 75 M samples stalls at 2^32
+        mean_out = res.mean(axis=(0, 1), dtype=np.float64)
+        if res.shape != (*LIBRARY_CANVAS, 3) or not np.isfinite(res).all() \
+                or np.abs(mean_out - mean_in).max() > 10.0:
+            fail(f"library: {name} gave {res.shape}, means {mean_out} against the "
+                 f"input's {mean_in}")
+        fusions[name] = {"seconds": seconds, "peak_mem_gb": peak, "launches": n,
+                         "launches_by_shape": launches_by_shape(held)}
+        helds.append(held)
+        for k in launches:
+            launches[k] += n[k]
+        if name == "laplacian_fusion":
+            results[name] = res
+        del res
+    out["fusions"] = fusions
+
+    lap = results["laplacian_fusion"]
+    t0 = time.time()
+    seams = bm.detect_seams(lap, infos)
+    out["detect_seams_s"] = time.time() - t0
+    t0 = time.time()
+    repaired = bm.repair_seams(lap, seams, infos)
+    out["repair_seams_s"] = time.time() - t0
+    sev = [s.severity for s in seams]
+    out["seams"] = {"count": len(seams), "high": sev.count("high"),
+                    "medium": sev.count("medium"), "low": sev.count("low"),
+                    "repaired_max_change": float(np.abs(repaired - lap).max())}
+    del repaired
+    t0 = time.time()
+    out["blend_quality"] = compute_blend_quality(
+        lap, [i.image for i in infos], [(i.y, i.x) for i in infos], device="cuda")
+    out["blend_quality_s"] = time.time() - t0
+    if not 0.0 < out["blend_quality"]["mean_ssim"] <= 1.0:
+        fail(f"library: compute_blend_quality {out['blend_quality']}")
+    del infos, up
+    torch.cuda.empty_cache()
+
+    # The clone: the Laplacian result as the base, its mirror image as the
+    # overlay, a 2048-px square mask in the middle.
+    h, w = LIBRARY_CANVAS
+    base = lap
+    overlay = np.ascontiguousarray(lap[:, ::-1])
+    mask = np.zeros((h, w), np.float32)
+    y0, x0 = (h - CLONE_MASK) // 2, (w - CLONE_MASK) // 2
+    mask[y0 : y0 + CLONE_MASK, x0 : x0 + CLONE_MASK] = 1.0
+    cut = {"near": 0, "coarse_masks": 0}
+
+    def count_near_cut(name, x, o, _dst):
+        if name == "pyr_down" and x.shape[-1] == 1:
+            cut["coarse_masks"] += 1
+            cut["near"] += int(((o - MASK_CUT).abs() < MASK_CUT_TOL).sum())
+
+    dst_t, src_t, mask_t = (torch.from_numpy(a).cuda() for a in (base, overlay, mask))
+    with torch.no_grad(), pyramid_calls(K, count_near_cut):
+        u_mg = B.seamless_clone_multigrid(dst_t, src_t, mask_t)
+    torch.cuda.synchronize()
+    res, seconds, n, held, peak = held_then_timed(
+        torch, K, "library_poisson",
+        lambda: bm.poisson_fusion(base, overlay, mask, solver="multigrid"))
+    if res.shape != (h, w, 3) or not np.isfinite(res).all():
+        fail(f"library: poisson_fusion gave {res.shape}")
+    if cut["near"]:
+        fail(f"library: {cut['near']} coarse-mask samples within {MASK_CUT_TOL} of {MASK_CUT}")
+    helds.append(held)
+    for k in launches:
+        launches[k] += n[k]
+    _, m, div, u0 = B._clone_problem(dst_t, src_t, mask_t, "normal")
+
+    def residual_of(u):  # max |lap(u) - div| over the mask
+        return float(((B._laplace(u) - div).abs() * m).max())
+
+    with torch.no_grad():
+        t0 = time.time()
+        u_j = B.seamless_clone(dst_t, src_t, mask_t)
+        torch.cuda.synchronize()
+        jacobi_s = time.time() - t0
+    residual = {"multigrid": residual_of(u_mg), "jacobi_400": residual_of(u_j),
+                "start": residual_of(u0)}
+    if not residual["multigrid"] < residual["start"]:
+        fail(f"library: the multigrid clone did not lower the residual: {residual}")
+    out["poisson"] = {"canvas": [h, w, 3], "mask": CLONE_MASK, "seconds": seconds,
+                      "jacobi_400_seconds": jacobi_s, "peak_mem_gb": peak, "launches": n,
+                      "launches_by_shape": launches_by_shape(held),
+                      "residual_max_in_mask": residual,
+                      "coarse_mask_samples_near_cut": cut["near"],
+                      "coarse_mask_launches": cut["coarse_masks"]}
+    del dst_t, src_t, mask_t, div, m, u0, u_mg, u_j
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["held_against_plain"] = merge_held(*helds)
+    return out
+
+
+def library_examples() -> dict:
+    """``python3 -m srs_tpu_torch.examples`` once in its own process."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "srs_tpu_torch.examples"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+    heads = [line[3:] for line in proc.stdout.splitlines() if line.startswith("== ")]
+    if proc.returncode != 0 or tuple(heads) != EXAMPLE_SECTIONS:
+        fail(f"library: python3 -m srs_tpu_torch.examples exited {proc.returncode}, "
+             f"sections {heads}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    return {"seconds": time.time() - t0, "sections": heads,
+            "lines": [line for line in lines if line.startswith(
+                ("sr:", "tiling:", "merge", "laplacian", "seams", "PSNR", "MS-SSIM",
+                 "pipeline:"))]}
+
+
+def library(torch, K, tmp: str, image: np.ndarray, bench_pipe, bench_nums) -> dict:
+    """Phase 16: the library API at full size (ROIs, tiling, every
+    fusion, seams, the multigrid clone, the examples)."""
+    roi = library_roi(torch, K, tmp, image, bench_pipe, bench_nums)
+    blend = library_blend(torch, K, tmp, image)
+    launches = {k: roi["launches"][k] + blend["launches"][k] for k in roi["launches"]}
+    for kname, n in launches.items():
+        if n <= 0:
+            fail(f"library never launched kernel {kname}")
+    return {"roi": roi, "blend": blend, "examples": library_examples(), "launches": launches,
+            "held_against_plain": merge_held(roi["held_against_plain"],
+                                             blend["held_against_plain"])}
+
+
+def library_reference(torch, tmp: str) -> dict:
+    """Phase 17: the library API card against CPU at the CPU tests' sizes,
+    float32 with TF32 off: each fusion, the clones and the tiling merge
+    within 1e-3 (the merge 1e-4), split tiles equal, Canny masks equal,
+    commercial metrics (and a bicubic process() with ROIs) within
+    relative 1e-4."""
+    from srs_tpu_torch.blending import BlendingModule, PoissonMode, TileInfo
+    from srs_tpu_torch.ops.colorspace import rgb_to_gray
+    from srs_tpu_torch.ops.filters import canny_edges
+    from srs_tpu_torch.ops.resize import resize_bicubic_up
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+    from srs_tpu_torch.qa.commercial import evaluate_commercial_arrays
+    from srs_tpu_torch.tiling.tiling import TilingModule
+
+    torch.backends.cudnn.allow_tf32 = False
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out: dict = {}
+    scene = synthetic_image(112, 160, seed=8)
+    step, block = 48, 64
+    infos = [TileInfo(scene[r * step : r * step + block, c * step : c * step + block],
+                      c * step, r * step, r, c) for r in range(2) for c in range(3)]
+    rng = np.random.default_rng(9)
+    dst = synthetic_image(96, 96, seed=10) * 0.3 + 20.0
+    src = np.repeat((170 + 30 * np.sin(np.arange(96, dtype=np.float32) / 7))[None, :, None],
+                    96, 0).repeat(3, 2) + rng.normal(0, 3, (96, 96, 3))
+    src = src.astype(np.float32)
+    mask = np.zeros((96, 96), np.float32)
+    mask[10:84, 8:87] = 1.0
+    got: dict = {}
+    for device in ("cuda", "cpu"):
+        bm = BlendingModule(device=device)
+        r = {name: getattr(bm, name)(infos, output_shape=(112, 160)) for name in LIBRARY_FUSIONS}
+        for mode in PoissonMode:
+            for solver in ("multigrid", "jacobi"):
+                r[f"poisson_{mode.value}_{solver}"] = bm.poisson_fusion(dst, src, mask, mode,
+                                                                       solver)
+        tm = TilingModule(block_size=64, overlap_ratio=0.2, device=device,
+                          cache_dir=os.path.join(tmp, f"libref_{device}"))
+        split = tm.split_image(scene)
+        r["split"] = np.stack([t.data for t in split])
+        r["merge"] = tm.merge_tiles(split, output_size=(112, 160), scale=1)
+        for t in split:
+            t.data = resize_bicubic_up(torch.from_numpy(t.data)[None].to(device), 2)[0].cpu().numpy()
+        r["merge_x2"] = tm.merge_tiles(split)
+        img = torch.from_numpy(synthetic_image(64, 80, seed=11)).to(device)
+        r["canny"] = canny_edges(rgb_to_gray(img)).cpu().numpy()
+        r["commercial"] = {k: float(v) for k, v in evaluate_commercial_arrays(
+            img, LIBRARY_ROIS_SMALL).items()}
+        cfg = PipelineConfig(block_size=64, target_resolution="384x288", provider="bicubic",
+                             auto_route=False, per_scale_selection=False, device=device)
+        res = SuperResolutionPipeline(cfg).process(
+            synthetic_image(96, 128, seed=12), os.path.join(tmp, f"libref_{device}.tiff"),
+            roi_regions=LIBRARY_ROIS_SMALL)
+        if not res.success:
+            fail(f"library_reference: process(roi_regions) on {device}: {res.error_message}")
+        r["process_commercial"] = commercial_of(res.quality_report)
+        got[device] = r
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    gpu, cpu = got["cuda"], got["cpu"]
+    for name in [*LIBRARY_FUSIONS, *(k for k in cpu if k.startswith("poisson_")), "merge"]:
+        err = float(np.abs(gpu[name] - cpu[name]).max())
+        tol = 1e-4 if name.startswith("merge") else 1e-3
+        out[name] = err
+        if gpu[name].shape != cpu[name].shape or err > tol:
+            fail(f"library_reference: {name}: card against CPU max abs err {err} > {tol}")
+    out["merge_x2"] = float(np.abs(gpu["merge_x2"] - cpu["merge_x2"]).max())
+    if out["merge_x2"] > 1e-3:
+        fail(f"library_reference: merge_x2 {out['merge_x2']}")
+    if not np.array_equal(gpu["split"], cpu["split"]):
+        fail("library_reference: split_image tiles differ between card and CPU")
+    out["canny_pixels_differing"] = int((gpu["canny"] != cpu["canny"]).sum())
+    if out["canny_pixels_differing"]:
+        fail(f"library_reference: Canny masks differ in {out['canny_pixels_differing']} px")
+    for key in ("commercial", "process_commercial"):
+        bad = commercial_mismatch(gpu[key], cpu[key])
+        if bad or len(cpu[key]) < len(COMMERCIAL_KEYS):
+            fail(f"library_reference: {key} card against CPU: {bad}")
+        out[key] = {k: [gpu[key][k], cpu[key][k]] for k in cpu[key]}
+    return out
+
+
 def self_dev_ms(e) -> float:
     """An op's own device milliseconds in ``key_averages()``, under either
     name the profiler has given it."""
@@ -2002,11 +2429,19 @@ def main() -> int:
         emit("train_reference", t0, **train_reference(torch))
 
         t0 = time.time()
+        lib = library(torch, K, tmp, image, bench_pipe, bench)
+        emit("library", t0, **lib)
+
+        t0 = time.time()
+        emit("library_reference", t0, **library_reference(torch, tmp))
+
+        t0 = time.time()
         held = {"main_path": main["held_against_plain"], "zssr": zssr["held_against_plain"],
                 "bench_path": bench["held_against_plain"],
                 "cli_path": cli["held_against_plain"],
                 **{f"provider_{k}": v["held_against_plain"] for k, v in prov.items()},
-                **{f"jobs_{k}": job_nums[k]["held_against_plain"] for k in JOB_CASES}}
+                **{f"jobs_{k}": job_nums[k]["held_against_plain"] for k in JOB_CASES},
+                "library": lib["held_against_plain"]}
         shapes = time_kernel_shapes(torch, K, held)
         emit("kernel_shapes", t0, **shapes)
 
@@ -2038,7 +2473,8 @@ def main() -> int:
                                  "zssr": zssr["launches"][name],
                                  **{f"provider_{k}": v["launches"][name]
                                     for k, v in prov.items()},
-                                 **{f"jobs_{k}": job_nums[k]["launches"][name] for k in JOB_CASES}},
+                                 **{f"jobs_{k}": job_nums[k]["launches"][name] for k in JOB_CASES},
+                                 "library": lib["launches"][name]},
             "max_abs_err": max(d["max_abs_err"],
                                *(h[name]["max_abs_err"] for h in held.values())),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],

@@ -12,8 +12,31 @@ with ``nvcc`` at first use and bound with ``ctypes``
 asks for the CPU (``device="cpu"``), where the kernels' plain PyTorch
 versions serve.
 
-Submodules are imported explicitly (``from srs_tpu_torch.pipeline import
-SuperResolutionPipeline``); importing the package itself loads nothing.
+The package exports the reference's names: ``SystemConfig`` and the
+environment's ``config`` (``config.py`` imports only the standard
+library; it is bound here so that ``srs_tpu_torch.config`` is the
+configuration, as in the reference, and not the submodule), and
+``SuperResolutionPipeline``, ``PipelineConfig`` and ``PipelineResult``,
+loaded on first access (PEP 562): importing the package loads neither
+torch nor the pipeline.
 """
 
+import importlib
+
+from .config import SystemConfig, config
+
 __version__ = "0.1.0"
+
+_PIPELINE_EXPORTS = ("SuperResolutionPipeline", "PipelineConfig", "PipelineResult")
+
+__all__ = [*_PIPELINE_EXPORTS, "SystemConfig", "config", "__version__"]
+
+
+def __getattr__(name: str):
+    if name in _PIPELINE_EXPORTS:
+        return getattr(importlib.import_module(".pipeline", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_PIPELINE_EXPORTS))

@@ -13,8 +13,11 @@ kinds), ``_collapse_step``,
 ``weighted_fusion_tiles`` (347-366); the spectral Poisson solver
 (``_dct2``, ``_idct2``, ``poisson_solve_neumann``, 369-439, on
 ``torch.fft``); ``gradient_domain_fusion_tiles`` (442-476);
-``seamless_clone`` (479-531); and ``_finalize_band`` /
-``blend_finalize_banded`` (538-692), with ``as_device``.
+``seamless_clone`` (479-531); ``_finalize_band`` /
+``blend_finalize_banded`` (538-692), with ``as_device``; and the
+multigrid Poisson clone (``_masked_jacobi``, ``_laplace``, ``_vcycle``,
+``seamless_clone_multigrid``, 695-773), whose restriction is K1 and
+prolongation K2 on one image, in plain Python recursion.
 
 The math is the reference's; the execution shape is the port's own. The
 reference stages per-level programs, unrolls loops and caps chunks to fit
@@ -40,6 +43,7 @@ from .pyramid import (
     build_gaussian_pyramid,
     build_laplacian_pyramid,
     collapse_laplacian_pyramid,
+    pyr_down,
     pyr_up,
 )
 from .resize import _axis_plan, _band_matrix, _down_axis_int, _resize_w_blocked, _w_block_plan
@@ -53,6 +57,7 @@ __all__ = [
     "gradient_domain_fusion_tiles",
     "poisson_solve_neumann",
     "seamless_clone",
+    "seamless_clone_multigrid",
 ]
 
 
@@ -198,9 +203,10 @@ def laplacian_fusion_tiles(
     collapse_last: bool = True,
     weights=None,
     mode: str = "canvas",
+    positions: Optional[np.ndarray] = None,
 ):
-    """Burt-Adelson blend of a [N, B, B, C] tile batch at ``layout``'s
-    positions, weighted by separable ``weight_profiles=(wy, wx)`` ([N, B]
+    """Burt-Adelson blend of a [N, B, B, C] tile batch at ``positions``
+    ((N, 2) (y, x); ``layout``'s by default), weighted by separable ``weight_profiles=(wy, wx)`` ([N, B]
     each) or by dense ``weights`` ([N, B, B]; ignored when profiles are
     given).
 
@@ -216,10 +222,12 @@ def laplacian_fusion_tiles(
     collapse(L_i(tile) * G_i(w)), merged on the canvas and normalized by
     the level-0 weight sum, as the reference's blending module does.
     """
+    if positions is None:
+        positions = layout.positions
     if mode == "reference":
         w = torch.as_tensor(weights, dtype=torch.float32, device=tiles.device)
         weighted = _weighted_collapse(tiles, w, levels)
-        canvas = merge_tiles(weighted, w, layout, premultiplied=True)
+        canvas = merge_tiles(weighted, w, layout, positions, premultiplied=True)
     else:
         if layout.num_tiles > 1:
             align = min(_v2(int(p)) for p in np.asarray(layout.positions).reshape(-1)
@@ -229,13 +237,13 @@ def laplacian_fusion_tiles(
         if weight_profiles is not None:
             wy, wx = weight_profiles
             canvas = _canvas_pyramid_blend_profiles(
-                tiles, wy, wx, layout.positions, levels, layout.padded_h, layout.padded_w,
+                tiles, wy, wx, positions, levels, layout.padded_h, layout.padded_w,
                 collapse_last=collapse_last,
             )
             if not collapse_last:
                 return canvas  # (lap0, coarse), or the unclipped canvas at one level
         else:
-            canvas = _canvas_pyramid_blend(tiles, weights, layout.positions, levels,
+            canvas = _canvas_pyramid_blend(tiles, weights, positions, levels,
                                            layout.padded_h, layout.padded_w)
     if clip_range is not None:
         canvas = torch.clamp(canvas, clip_range[0], clip_range[1])
@@ -247,10 +255,11 @@ def weighted_fusion_tiles(
     weights,
     layout: TileLayout,
     clip_range: Optional[Tuple[float, float]] = None,
+    positions: Optional[np.ndarray] = None,
 ) -> torch.Tensor:
     """Weighted-average fusion (ramp weights) or feather blend (distance
     weights): ``merge_tiles``, optionally clipped."""
-    canvas = merge_tiles(tiles, weights, layout)
+    canvas = merge_tiles(tiles, weights, layout, positions)
     if clip_range is not None:
         canvas = torch.clamp(canvas, clip_range[0], clip_range[1])
     return canvas
@@ -328,6 +337,7 @@ def gradient_domain_fusion_tiles(
     weights,
     layout: TileLayout,
     clip_range: Optional[Tuple[float, float]] = (0.0, 255.0),
+    positions: Optional[np.ndarray] = None,
 ) -> torch.Tensor:
     """Gradient-domain fusion: the tiles' forward differences merged on the
     canvas with ``weights``, their divergence integrated by the spectral
@@ -335,11 +345,11 @@ def gradient_domain_fusion_tiles(
     tiles = tiles.float()
     gx = torch.diff(tiles, dim=2, append=tiles[:, :, -1:, :])
     gy = torch.diff(tiles, dim=1, append=tiles[:, -1:, :, :])
-    gx_c = merge_tiles(gx, weights, layout)
+    gx_c = merge_tiles(gx, weights, layout, positions)
     del gx
-    gy_c = merge_tiles(gy, weights, layout)
+    gy_c = merge_tiles(gy, weights, layout, positions)
     del gy
-    base_mean = merge_tiles(tiles, weights, layout).mean(dim=(0, 1), keepdim=True)
+    base_mean = merge_tiles(tiles, weights, layout, positions).mean(dim=(0, 1), keepdim=True)
     # backward differences, summed in the reference's order
     div = gx_c.clone()
     div[:, 1:] -= gx_c[:, :-1]
@@ -357,21 +367,15 @@ def gradient_domain_fusion_tiles(
 # -- seamless clone ------------------------------------------------------------
 
 
-def seamless_clone(
-    dst: torch.Tensor,
-    src: torch.Tensor,
-    mask: torch.Tensor,
-    mode: str = "normal",
-    iters: int = 400,
-) -> torch.Tensor:
-    """cv2.seamlessClone equivalent on aligned (..., H, W, C) arrays: Jacobi
-    relaxation of lap(u) = div(g) inside ``mask`` ((H, W), or any shape
-    that broadcasts to (..., H, W, 1)) with ``dst`` held outside it. g is the source's
-    gradient field (``mode="normal"``), the larger of the source's and the
-    destination's per component (``"mixed"``), or the source's gray
-    gradients (``"monochrome"``). Neighbours wrap around the borders, as
-    the reference's ``jnp.roll`` does. Leading dimensions are independent
-    problems."""
+def _clone_problem(dst, src, mask, mode: str):
+    """The Poisson-editing problem of aligned (..., H, W, C) images:
+    (dst, m, div, u0) with the mask as {0, 1} floats broadcasting to
+    (..., H, W, 1), ``div`` the divergence of the guidance field (the
+    source's forward differences for ``"normal"``, its grey's for
+    ``"monochrome"``, per component the larger of the source's and the
+    destination's for ``"mixed"``; backward differences summed in the
+    reference's order), and the warm start ``u0`` (the source inside the
+    mask, ``dst`` outside)."""
     dst = dst.float()
     src = src.float()
     m = (mask > 0).float()
@@ -397,12 +401,78 @@ def seamless_clone(
     div.narrow(ax, 1, div.shape[ax] - 1).sub_(sx.narrow(ax, 0, sx.shape[ax] - 1))
     div += sy
     div.narrow(ay, 1, div.shape[ay] - 1).sub_(sy.narrow(ay, 0, sy.shape[ay] - 1))
+    return dst, m, div, dst * (1 - m) + src * m
+
+
+def _roll4(u: torch.Tensor) -> torch.Tensor:
+    """Sum of the four neighbours over the (H, W) axes of (..., H, W, C),
+    wrapping around the borders as the reference's ``jnp.roll`` does."""
+    return (torch.roll(u, 1, -3) + torch.roll(u, -1, -3)
+            + torch.roll(u, 1, -2) + torch.roll(u, -1, -2))
+
+
+def _masked_jacobi(u, div, m, dst, iters: int):
+    """``iters`` Jacobi sweeps of lap(u) = div inside ``m``, ``dst``
+    outside it."""
     keep = dst * (1 - m)
-    u = keep + src * m  # warm start
     for _ in range(iters):
-        nb = (torch.roll(u, 1, ay) + torch.roll(u, -1, ay)
-              + torch.roll(u, 1, ax) + torch.roll(u, -1, ax))
-        u = keep + (nb - div) * 0.25 * m
+        u = keep + (_roll4(u) - div) * 0.25 * m
+    return u
+
+
+def seamless_clone(
+    dst: torch.Tensor,
+    src: torch.Tensor,
+    mask: torch.Tensor,
+    mode: str = "normal",
+    iters: int = 400,
+) -> torch.Tensor:
+    """cv2.seamlessClone equivalent on aligned (..., H, W, C) arrays: Jacobi
+    relaxation of lap(u) = div(g) inside ``mask`` ((H, W), or any shape
+    that broadcasts to (..., H, W, 1)) with ``dst`` held outside it
+    (:func:`_clone_problem` gives g for each ``mode``). Leading dimensions
+    are independent problems."""
+    dst, m, div, u = _clone_problem(dst, src, mask, mode)
+    return _masked_jacobi(u, div, m, dst, iters)
+
+
+def _laplace(u: torch.Tensor) -> torch.Tensor:
+    return _roll4(u) - 4.0 * u
+
+
+def _vcycle(u, div, m, dst, depth: int, nu: int = 12):
+    """One multigrid V-cycle for lap(u) = div inside ``m`` (``dst`` outside)
+    on (H, W, C): smooth, restrict the residual with pyrDown (K1; times 4,
+    the coarse stencil's h^2), take the coarse mask as the fine mask's
+    strict interior (pyrDown(m) > 0.999, K1 at C = 1), solve the coarse
+    error by recursion, prolong it with pyrUp (K2) to the fine size,
+    smooth again. The recursion stops at ``depth`` 0 or below 8 px."""
+    u = _masked_jacobi(u, div, m, dst, nu)
+    if depth > 0 and min(u.shape[0], u.shape[1]) >= 8:
+        r = (div - _laplace(u)) * m
+        r_c = pyr_down(r) * 4.0
+        m_c = (pyr_down(m) > 0.999).float()
+        zero = torch.zeros_like(r_c)
+        e_c = _vcycle(zero, r_c, m_c, zero, depth - 1, nu)
+        u = u + pyr_up(e_c, (u.shape[0], u.shape[1])) * m
+    return _masked_jacobi(u, div, m, dst, nu)
+
+
+def seamless_clone_multigrid(
+    dst: torch.Tensor,
+    src: torch.Tensor,
+    mask: torch.Tensor,
+    mode: str = "normal",
+    cycles: int = 6,
+    depth: int = 5,
+) -> torch.Tensor:
+    """Poisson editing of aligned (H, W, C) images, the equation of
+    :func:`seamless_clone` solved by ``cycles`` V-cycles of ``depth``
+    levels: low-frequency error decays once a cycle instead of once every
+    ~N^2 Jacobi sweeps."""
+    dst, m, div, u = _clone_problem(dst, src, mask, mode)
+    for _ in range(cycles):
+        u = _vcycle(u, div, m, dst, depth)
     return u
 
 

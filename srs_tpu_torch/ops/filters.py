@@ -1,12 +1,13 @@
 """Separable filters with OpenCV parity (port of
-``srs_tpu/ops/filters.py:31-92``).
+``srs_tpu/ops/filters.py:31-160``).
 
 1-D convolutions along an axis over REFLECT_101 borders, on tensors on
 any device: ``gaussian_blur`` (cv2.GaussianBlur), ``box_blur``
 (cv2.blur), ``sobel`` (cv2.Sobel, ksize 3) and ``laplacian``
 (cv2.Laplacian, ksize 1), each over the last two (H, W) axes. Taps sum
-in the reference's order, in float32. ``canny_edges`` waits for the
-seam-repair port.
+in the reference's order, in float32. ``canny_edges`` is the
+reference's approximation of cv2.Canny (commercial QA's oversharpening
+score).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ __all__ = [
     "sobel",
     "laplacian",
     "sep_filter",
+    "canny_edges",
 ]
 
 
@@ -98,3 +100,42 @@ def laplacian(x: torch.Tensor) -> torch.Tensor:
     ah, aw = x.dim() - 2, x.dim() - 1
     k = np.array([1.0, -2.0, 1.0], np.float32)
     return _conv_axis(x, k, ah) + _conv_axis(x, k, aw)
+
+
+def canny_edges(x: torch.Tensor, low: float = 50.0, high: float = 150.0,
+                hysteresis_iters: int = 8) -> torch.Tensor:
+    """The reference's Canny on (..., H, W) in [0, 255], as a {0, 1} float
+    mask: Sobel L1 magnitude, non-maximum suppression in 4 direction bins,
+    double threshold, then ``hysteresis_iters`` steps of 8-neighbour
+    max-pool growth from strong into weak edges. Neighbours wrap around
+    the borders (the reference's ``jnp.roll``)."""
+    gx, gy = sobel(x)
+    mag = gx.abs() + gy.abs()
+    ax, ay = gx.abs(), gy.abs()
+    horiz = ay <= ax * 0.4142135623730951  # tan 22.5 deg
+    vert = ay >= ax * 2.414213562373095  # tan 67.5 deg
+    same_sign = (gx * gy) >= 0
+
+    def shift(a, dy, dx):
+        return torch.roll(torch.roll(a, dy, dims=-2), dx, dims=-1)
+
+    n1 = torch.where(horiz, shift(mag, 0, 1), torch.where(
+        vert, shift(mag, 1, 0), torch.where(same_sign, shift(mag, 1, 1), shift(mag, 1, -1))))
+    n2 = torch.where(horiz, shift(mag, 0, -1), torch.where(
+        vert, shift(mag, -1, 0), torch.where(same_sign, shift(mag, -1, -1), shift(mag, -1, 1))))
+    is_max = (mag >= n1) & (mag >= n2)
+    strong = (is_max & (mag > high)).float()
+    weak = (is_max & (mag > low)).float()
+
+    def dilate(m):
+        out = m
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dy or dx:
+                    out = torch.maximum(out, shift(m, dy, dx))
+        return out
+
+    edges = strong
+    for _ in range(hysteresis_iters):
+        edges = torch.minimum(dilate(edges), weak)
+    return torch.maximum(edges, strong)

@@ -35,7 +35,9 @@ providers ``quality``, ``fast``, ``hybrid``, ``fusion``, ``bicubic`` and
 4. quality assessment (``enable_qa``): the save bands are computed first,
    then an input-size proxy of the output is finalized on the device and
    scored against the input (PSNR, SSIM, MS-SSIM, LPIPS, downsample
-   comparison) and on its own (NIQE, BRISQUE, ...);
+   comparison) and on its own (NIQE, BRISQUE, ...); a job with
+   ``roi_regions`` adds the commercial metrics of the proxy and of each
+   region of interest (boxes in input coordinates);
 5. save: TIFF bands stream into the native writer (with QA off the
    banded finalize runs here); other formats go through ``save_image``
    (PNG, or JPEG where PIL is installed); with QA on, crops of the output
@@ -75,7 +77,8 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .config import RESOLUTION_PRESETS, ModelConfig, QualityAssessmentConfig
+from .blending import BlendingModule
+from .config import RESOLUTION_PRESETS, ModelConfig, SystemConfig
 from .io.image import load_image, save_image
 from .models import routing
 from .models.lpips import LPIPSMetric
@@ -130,8 +133,6 @@ _NOT_PORTED = {
                      "gradient", "gradient_domain", "poisson"),
     "sr_gain_route": ("shrink", "bicubic", "zssr"),
 }
-_ROI = ("roi_regions: commercial QA of regions of interest is not ported yet "
-        "(ROADMAP Queue 1, item 2: commercial QA and roi_regions)")
 
 
 class PipelineCancelled(RuntimeError):
@@ -244,6 +245,12 @@ class SuperResolutionPipeline:
     ``"alex"`` to LPIPS feature state dicts
     (``models.lpips.convert_lpips_params``); a net without one gets
     seeded features.
+
+    The stage modules are built from ``SystemConfig.from_env()``, as the
+    reference does: the environment's ``BLOCK_SIZE`` and ``OVERLAP_RATIO``
+    apply where the pipeline's block size and overlap are at the tiling
+    module's defaults (2048 and 0.2), and the blending and QA modules take
+    the tree's sections.
     """
 
     def __init__(
@@ -254,11 +261,17 @@ class SuperResolutionPipeline:
     ):
         self.config = config or PipelineConfig()
         self.device = resolve_device(self.config.device)
+        sys_cfg = SystemConfig.from_env()
         self.tiling_module = TilingModule(
             block_size=self.config.block_size,
             overlap_ratio=self.config.overlap_ratio,
             padding_mode=self.config.padding_mode,
+            config=sys_cfg.tiling,
+            device=self.device,
         )
+        self.blending_module = BlendingModule(
+            config=sys_cfg.blending, num_levels=self.config.num_pyramid_levels,
+            device=self.device)
         self.sr_module = SuperResolutionModule(
             ModelConfig(
                 quality_model=self.config.quality_model,
@@ -277,7 +290,7 @@ class SuperResolutionPipeline:
         self.quality_module: Optional[QualityAssessmentModule] = None
         if self.config.enable_qa:
             self.quality_module = QualityAssessmentModule(
-                QualityAssessmentConfig(), self.device, LPIPSMetric(lpips_params, self.device))
+                sys_cfg.quality, self.device, LPIPSMetric(lpips_params, self.device))
         # The scheduler books each job's tiles as tasks and drives the SR
         # stage's retry and degradation ladder; its agents are the CUDA
         # devices (on the CPU, the one device the pipeline runs on).
@@ -889,10 +902,11 @@ class SuperResolutionPipeline:
         with QA on. A ``prompt`` that names a template category
         (``models/prompts.py``) steers this job's conditioned polish in
         place of ``prompt_category``; other prompts change nothing
-        (reference pipeline.py:896-912). ``roi_regions`` raises
-        ``NotImplementedError``: commercial QA is not ported yet."""
-        if roi_regions:
-            raise NotImplementedError(_ROI)
+        (reference pipeline.py:896-912). ``roi_regions`` (``{"type": "text"
+        | "product" | "face" | "brand", "bbox": [x, y, w, h]}`` in input
+        coordinates, a brand with ``"reference_color"``) add the
+        commercial metrics to the QA report; with QA off they are
+        ignored, as in the reference."""
         start = time.time()
         stage_times: Dict[str, float] = {}
         category = (prompt if prompt in PromptTemplateManager.TEMPLATES
@@ -905,7 +919,7 @@ class SuperResolutionPipeline:
             # inference_mode is per thread: each batch worker enters its own.
             with torch.inference_mode(), contextlib.ExitStack() as device_stages:
                 return self._process(input_path, output_path, start, stage_times, category,
-                                     device_stages)
+                                     roi_regions, device_stages)
         except Exception as e:  # noqa: BLE001 - parity: never raise
             logger.exception("pipeline failed")
             return PipelineResult(
@@ -922,18 +936,15 @@ class SuperResolutionPipeline:
         (reference pipeline.py:1394-1454); results in the jobs' order.
 
         Each job: ``{"input": path or array, "output": path}``, optionally
-        ``"vip_level"`` (``VIPLevel`` or its int) and ``"prompt"``; a job
-        with ``"roi_regions"`` raises ``NotImplementedError`` before any job
-        runs. Jobs are ordered by ``Task.calculate_priority`` (VIP level,
-        then the order given: one submit time for the whole batch). With
+        ``"vip_level"`` (``VIPLevel`` or its int), ``"prompt"`` and
+        ``"roi_regions"`` (as in :meth:`process`). Jobs are ordered by
+        ``Task.calculate_priority`` (VIP level, regions of interest, then
+        the order given: one submit time for the whole batch). With
         ``max_concurrent > 1`` they run on that many worker threads, and a
         semaphore lets one job at a time through the device stages (SR to
         QA), so one job's save overlaps the next one's SR and blend. With
         ``provider="zssr"`` the jobs run one after another, as in the
         reference: each tunes the net the SR module holds."""
-        for job in jobs:
-            if job.get("roi_regions"):
-                raise NotImplementedError(_ROI)
         submitted = time.time()
 
         def priority(job: Dict[str, Any]) -> float:
@@ -948,14 +959,16 @@ class SuperResolutionPipeline:
             max_concurrent = 1
         if max_concurrent <= 1 or len(jobs) < 2:
             for idx, job in ordered:
-                results[idx] = self.process(job["input"], job["output"], prompt=job.get("prompt"))
+                results[idx] = self.process(job["input"], job["output"], prompt=job.get("prompt"),
+                                            roi_regions=job.get("roi_regions"))
             return results  # type: ignore[return-value]
         self._cancel_event.clear()  # once per batch, not per job
         self._stage_sem = threading.Semaphore(1)
         try:
             with ThreadPoolExecutor(max_workers=max_concurrent) as pool:
                 futures = [(idx, pool.submit(self.process, job["input"], job["output"],
-                                             prompt=job.get("prompt")))
+                                             prompt=job.get("prompt"),
+                                             roi_regions=job.get("roi_regions")))
                            for idx, job in ordered]
                 for idx, fut in futures:
                     results[idx] = fut.result()
@@ -996,8 +1009,9 @@ class SuperResolutionPipeline:
             writer.close()  # joins the deflate threads and writes the file
             split["close"] = time.time() - ts
 
-    def _process(self, input_path, output_path, start, stage_times,
-                 category: Optional[str], device_stages: contextlib.ExitStack) -> PipelineResult:
+    def _process(self, input_path, output_path, start, stage_times, category: Optional[str],
+                 roi_regions: Optional[List[Dict[str, Any]]],
+                 device_stages: contextlib.ExitStack) -> PipelineResult:
         cfg = self.config
         with self._stage("tiling", stage_times):
             image = (
@@ -1076,6 +1090,11 @@ class SuperResolutionPipeline:
                 fr = self.quality_module.evaluate_full_reference(image_dev, small)
                 nr = self.quality_module.evaluate_no_reference(small)
                 quality_report = {**fr, **nr}
+                if roi_regions:
+                    # input-size proxy, so the boxes apply as they are; the
+                    # reference hands it over as a host array
+                    quality_report.update(self.quality_module.evaluate_commercial(
+                        small.cpu().numpy(), roi_regions))
         # The device stages are done: the next job of a batch may start its
         # SR. (With QA off this job's banded finalize runs in the save stage.)
         device_stages.close()

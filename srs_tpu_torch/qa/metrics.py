@@ -1,6 +1,6 @@
 """Full-reference quality metrics (port of ``srs_tpu/qa/metrics.py:42-183``):
-PSNR, Gaussian-windowed SSIM, multi-scale SSIM and the multiscale
-downsample comparison, on tensors in the [0, 255] float domain on any
+PSNR, Gaussian-windowed SSIM, the simple (uncropped) and global-statistics
+SSIM, multi-scale SSIM and the multiscale downsample comparison, on tensors in the [0, 255] float domain on any
 device. Each returns a 0-d float32 tensor (the caller fetches them
 together).
 """
@@ -15,7 +15,7 @@ from ..ops.colorspace import rgb_to_gray
 from ..ops.filters import gaussian_blur
 from ..ops.resize import resize_bicubic
 
-__all__ = ["psnr", "ssim", "ms_ssim", "downsample_comparison"]
+__all__ = ["psnr", "ssim", "ssim_simple", "ssim_global", "ms_ssim", "downsample_comparison"]
 
 _C1 = (0.01 * 255.0) ** 2
 _C2 = (0.03 * 255.0) ** 2
@@ -63,6 +63,25 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, sigma: float = 1.5, win: int = 
         r = win // 2
         m = m[..., r:-r, r:-r]
     return m.mean()
+
+
+def ssim_simple(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """SSIM from cv2.GaussianBlur(11, 1.5) local statistics, the mean of
+    the whole map (no border crop)."""
+    x = _to_gray(img1).float()
+    y = _to_gray(img2).float()
+    return _ssim_map(x, y, lambda a: gaussian_blur(a, 11, 1.5)).mean()
+
+
+def ssim_global(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """SSIM of one window over the whole image (population statistics)."""
+    x = _to_gray(img1).float()
+    y = _to_gray(img2).float()
+    mu1, mu2 = x.mean(), y.mean()
+    v1, v2 = torch.var(x, correction=0), torch.var(y, correction=0)
+    cov = ((x - mu1) * (y - mu2)).mean()
+    return ((2 * mu1 * mu2 + _C1) * (2 * cov + _C2)) / (
+        (mu1**2 + mu2**2 + _C1) * (v1 + v2 + _C2))
 
 
 def _pool2(x: torch.Tensor) -> torch.Tensor:

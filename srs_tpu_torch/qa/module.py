@@ -1,7 +1,8 @@
-"""QualityAssessmentModule (port of ``srs_tpu/qa/module.py:35-270``):
-full-reference and no-reference evaluation with the reference's keys,
-level labels and overall score, every metric computed on the module's
-device. ``evaluate_commercial`` is not ported yet (ROADMAP Queue 1).
+"""QualityAssessmentModule (port of ``srs_tpu/qa/module.py``): full-,
+no-reference and commercial evaluation with the reference's keys, level
+labels and overall score, every metric computed on the module's device;
+the ``calculate_*`` scalars, ``downsample_bicubic``, ``batch_evaluate``
+and the text and JSON reports (the same text line for line).
 
 The LPIPS level cut-offs are swapped for the calibrated values in
 ``srs_tpu/qa/data/lpips_calib.json``, read by path from this checkout.
@@ -12,14 +13,17 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import replace
+from datetime import datetime
 from enum import Enum
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import QualityAssessmentConfig, QualityThresholds
+from ..ops.resize import resize_bicubic
 from ..utils.device import resolve_device
+from . import commercial as C
 from . import metrics as M
 from . import noref as N
 from .niqe import DATA_DIR, brisque_score, niqe_score
@@ -118,9 +122,52 @@ class QualityAssessmentModule:
                 return lv.value
         return AssessmentLevel.POOR.value
 
-    def evaluate_full_reference(self, original, upscaled) -> Dict[str, Any]:
+    # -- scalar metrics (reference qa/module.py:123-172) -------------------
+    def _pair(self, img1, img2) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._match_size(self._preprocess(img1), self._preprocess(img2))
+
+    def calculate_psnr(self, img1, img2, data_range: float = 255.0) -> float:
+        return float(M.psnr(*self._pair(img1, img2), data_range))
+
+    def calculate_ssim(self, img1, img2, multiscale: bool = True) -> float:
+        """The Gaussian-windowed SSIM whatever ``multiscale`` says, as in
+        the reference; true MS-SSIM is :meth:`calculate_ms_ssim`."""
+        return float(M.ssim(*self._pair(img1, img2)))
+
+    def calculate_ms_ssim(self, img1, img2) -> float:
+        return float(M.ms_ssim(*self._pair(img1, img2)))
+
+    def calculate_lpips(self, img1, img2, net: str = "vgg") -> float:
+        if self._lpips is None:
+            raise RuntimeError("LPIPS model not loaded")
+        return float(self._lpips(*self._pair(img1, img2), net=net))
+
+    def calculate_niqe(self, image) -> float:
+        """NIQE from the packaged pristine model, else the closed form."""
+        img = self._preprocess(image)
+        v = niqe_score(img)
+        return float(v) if v is not None else float(N.niqe(img))
+
+    def calculate_brisque(self, image) -> float:
+        """BRISQUE from the packaged regressor, else the closed form."""
+        img = self._preprocess(image)
+        v = brisque_score(img)
+        return float(v) if v is not None else float(N.brisque(img))
+
+    def downsample_bicubic(self, image, scale_factor: float) -> np.ndarray:
+        """cv2 INTER_CUBIC downsample to ``int(size * scale_factor)``."""
+        if not (0.0 < scale_factor < 1.0):
+            raise ValueError(f"scale_factor must be in (0, 1), got {scale_factor}")
+        img = self._preprocess(image)
+        h, w = img.shape[0], img.shape[1]
+        out = resize_bicubic(img, int(h * scale_factor), int(w * scale_factor))
+        return out.cpu().numpy()
+
+    def evaluate_full_reference(self, original, upscaled,
+                                scale_factor: int = 4) -> Dict[str, Any]:
         """Downsample comparison, PSNR, SSIM, MS-SSIM, LPIPS (vgg, alex),
-        their levels and the overall score (reference qa/module.py:191-227)."""
+        their levels and the overall score (reference qa/module.py:191-227).
+        ``scale_factor`` is accepted and unused, as in the reference."""
         t = self.thresholds
         a = self._preprocess(original)
         b = self._preprocess(upscaled)
@@ -175,3 +222,117 @@ class QualityAssessmentModule:
             metrics["brisque"], t.brisque_excellent, t.brisque_good, t.brisque_acceptable,
             lower_better=True)
         return metrics
+
+    def evaluate_commercial(self, image,
+                            roi_regions: Optional[List[Dict[str, Any]]] = None
+                            ) -> Dict[str, Any]:
+        """The commercial metrics (``commercial.evaluate_commercial_arrays``)
+        with per-ROI keys, and a ``brand_color_accuracy_i`` level for each
+        brand's delta-E (reference qa/module.py:272-291)."""
+        t = self.thresholds
+        img = self._preprocess(image)
+        metrics: Dict[str, Any] = _fetch(C.evaluate_commercial_arrays(img, roi_regions))
+        for k in list(metrics):
+            if k.startswith("brand_color_delta_e_"):
+                idx = k.rsplit("_", 1)[1]
+                metrics[f"brand_color_accuracy_{idx}"] = self._level(
+                    metrics[k], t.delta_e_excellent, t.delta_e_good, t.delta_e_acceptable,
+                    lower_better=True)
+        return metrics
+
+    def batch_evaluate(self, image_pairs: Sequence[Tuple[Any, Any]],
+                       scale_factor: int = 4) -> List[Dict[str, Any]]:
+        return [self.evaluate_full_reference(o, u, scale_factor) for o, u in image_pairs]
+
+    # -- reports (reference qa/module.py:301-396) ----------------------------
+    def generate_report(self, metrics: Dict[str, Any], report_type: str = "full",
+                        output_path: Optional[str] = None) -> str:
+        """``"json"`` (a timestamp and the metrics), ``"summary"`` or the
+        ``"full"`` text report; written to ``output_path`` when given."""
+        if report_type == "json":
+            report = json.dumps({"timestamp": datetime.now().isoformat(), "metrics": metrics},
+                                indent=2, ensure_ascii=False)
+        elif report_type == "summary":
+            report = self._summary_report(metrics)
+        else:
+            report = self._full_report(metrics)
+        if output_path:
+            with open(output_path, "w", encoding="utf-8") as f:
+                f.write(report)
+        return report
+
+    @staticmethod
+    def _summary_report(m: Dict[str, Any]) -> str:
+        lines = ["=" * 50, "Super-Resolution QA Summary", "=" * 50, ""]
+        if "psnr" in m:
+            lines.append(f"PSNR:      {m['psnr']:.2f} dB")
+        if "ms_ssim" in m:
+            lines.append(f"MS-SSIM:   {m['ms_ssim']:.4f}")
+        if "lpips_vgg" in m:
+            lines.append(f"LPIPS:     {m['lpips_vgg']:.4f}")
+        if "niqe" in m:
+            lines.append(f"NIQE:      {m['niqe']:.2f}")
+        if "overall_score" in m:
+            lines.append(f"Overall:   {m['overall_score']:.2f}/100")
+        lines += ["", "=" * 50]
+        return "\n".join(lines)
+
+    @staticmethod
+    def _full_report(m: Dict[str, Any]) -> str:
+        lines = [
+            "=" * 70,
+            "Super-Resolution Image Quality Assessment Report",
+            "=" * 70,
+            f"Generated: {datetime.now().strftime('%Y-%m-%d %H:%M:%S')}",
+            "",
+        ]
+        if "psnr" in m:
+            lines += ["-" * 70, "[Full-Reference Metrics]", "-" * 70]
+            lines.append(f"PSNR:           {m.get('psnr', 0):.2f} dB    "
+                         f"[{m.get('psnr_level', 'N/A')}]")
+            lines.append(f"SSIM:           {m.get('ssim', 0):.4f}")
+            lines.append(f"MS-SSIM:        {m.get('ms_ssim', 0):.4f}    "
+                         f"[{m.get('ssim_level', 'N/A')}]")
+            if "lpips_vgg" in m:
+                lines.append(f"LPIPS (VGG):    {m['lpips_vgg']:.4f}    "
+                             f"[{m.get('lpips_level', 'N/A')}]")
+                lines.append(f"LPIPS (Alex):   {m.get('lpips_alex', 0):.4f}")
+            lines.append("")
+        ds_names = ["structure_color", "mid_frequency", "high_frequency"]
+        if any(f"psnr_{n}" in m for n in ds_names):
+            lines += ["-" * 70, "[Multiscale Downsample Comparison]", "-" * 70]
+            for n in ds_names:
+                if f"psnr_{n}" in m:
+                    lines.append(f"  {n}:")
+                    lines.append(f"    PSNR: {m[f'psnr_{n}']:.2f} dB")
+                    lines.append(f"    SSIM: {m[f'ssim_{n}']:.4f}")
+            lines.append("")
+        if "niqe" in m:
+            lines += ["-" * 70, "[No-Reference Metrics]", "-" * 70]
+            lines.append(f"NIQE:           {m['niqe']:.2f}    [{m.get('niqe_level', 'N/A')}]")
+            lines.append(f"BRISQUE:        {m['brisque']:.2f}    "
+                         f"[{m.get('brisque_level', 'N/A')}]")
+            lines.append(f"Sharpness:      {m.get('sharpness', 0):.2f}")
+            lines.append(f"Contrast:       {m.get('contrast', 0):.2f}")
+            lines.append(f"Colorfulness:   {m.get('colorfulness', 0):.2f}")
+            lines.append("")
+        if "commercial_score" in m:
+            lines += ["-" * 70, "[Commercial Advertising Assessment]", "-" * 70]
+            lines.append(f"Commercial score: {m['commercial_score']:.2f}/100")
+            lines.append("")
+            lines.append("  Detail fidelity:")
+            lines.append(f"    Global sharpness: {m.get('global_sharpness', 0):.2f}")
+            lines.append(f"    HF ratio:         {m.get('high_frequency_ratio', 0):.4f}")
+            lines.append("")
+            lines.append("  Visual comfort:")
+            lines.append(f"    Oversharpen:      {m.get('oversharpen_score', 0):.2f}/100")
+            lines.append(f"    Artifacts:        {m.get('artifact_score', 0):.2f}/100")
+            lines.append(f"    Noise level:      {m.get('noise_level', 0):.2f}")
+            lines.append(f"    Brightness unif.: {m.get('brightness_uniformity', 0):.2f}/100")
+            lines.append("")
+        if "overall_score" in m:
+            lines += ["-" * 70, "[Overall]", "-" * 70]
+            lines.append(f"Overall quality score: {m['overall_score']:.2f}/100")
+            lines.append("")
+        lines += ["-" * 70, "[Levels]  excellent | good | fair | poor", "=" * 70]
+        return "\n".join(lines)

@@ -8,13 +8,20 @@ reference exactly (tests/test_torch_geometry_tiles.py).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
-__all__ = ["TileLayout", "compute_layout", "neighbor_ids"]
+__all__ = [
+    "TileLayout",
+    "compute_layout",
+    "reference_positions",
+    "overlap_for_tile",
+    "neighbor_ids",
+]
 
 
 def _overlap_pixels(block_size: int, overlap_ratio: float) -> int:
@@ -46,6 +53,10 @@ class TileLayout:
     def num_tiles(self) -> int:
         return self.nx * self.ny
 
+    def tile_rc(self, t: int) -> Tuple[int, int]:
+        """(row, col) of tile ``t``."""
+        return t // self.nx, t % self.nx
+
     def scaled(self, scale: int) -> "TileLayout":
         """Layout of the output canvas after integer per-tile upscaling."""
         if scale == 1:
@@ -64,6 +75,13 @@ class TileLayout:
             overlaps=self.overlaps * scale,
             neighbors=self.neighbors,
         )
+
+    def to_dict(self) -> dict:
+        """The fields, with the arrays as nested lists."""
+        d = dataclasses.asdict(self)
+        for k in ("positions", "overlaps", "neighbors"):
+            d[k] = d[k].tolist() if hasattr(d[k], "tolist") else d[k]
+        return d
 
 
 def _grid_counts(w: int, h: int, block: int, overlap: int) -> Tuple[int, int]:
@@ -133,3 +151,44 @@ def neighbor_ids(nx: int, ny: int) -> np.ndarray:
                 if 0 <= rr < ny and 0 <= cc < nx:
                     out[r * nx + c, k] = rr * nx + cc
     return out
+
+
+def reference_positions(
+    image_w: int, image_h: int, block_size: int, overlap_ratio: float = 0.2
+) -> List[Tuple[int, int, int, int]]:
+    """The tiles clipped to the image, as (x, y, w, h), row by row (the
+    tiling the reference's edge tiles follow; no step rounding)."""
+    overlap = _overlap_pixels(block_size, overlap_ratio)
+    step = block_size - overlap
+    nx, ny = _grid_counts(image_w, image_h, block_size, overlap)
+    positions = []
+    for r in range(ny):
+        for c in range(nx):
+            x, y = c * step, r * step
+            positions.append((x, y, min(block_size, image_w - x), min(block_size, image_h - y)))
+    return positions
+
+
+def overlap_for_tile(
+    x: int,
+    y: int,
+    w: int,
+    h: int,
+    image_w: int,
+    image_h: int,
+    block_size: int,
+    overlap_ratio: float = 0.2,
+) -> Tuple[int, int, int, int]:
+    """(top, bottom, left, right) overlap of a clipped tile, with the
+    reference's edge-tile adjustment: a tile that reaches the image's far
+    edge overlaps by what its full block would cover past it."""
+    overlap = _overlap_pixels(block_size, overlap_ratio)
+    top = overlap if y > 0 else 0
+    left = overlap if x > 0 else 0
+    bottom = overlap if y + h < image_h else 0
+    right = overlap if x + w < image_w else 0
+    if y + block_size >= image_h:
+        bottom = max(0, block_size - (image_h - y) - top)
+    if x + block_size >= image_w:
+        right = max(0, block_size - (image_w - x) - left)
+    return (top, bottom, left, right)

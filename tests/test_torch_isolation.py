@@ -40,8 +40,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     count, bad = proc.stdout.strip().splitlines()[-1].split("|")
     # every module: the QA and routing ones, the CLI and __main__, seam
     # repair, colour correction, content-aware tiling, the trainer, the
-    # corpus and the photo harvest too
-    assert int(count) >= 44
+    # corpus and the photo harvest, commercial QA, the blending module and
+    # the examples too
+    assert int(count) >= 53
     assert bad == "", f"imported: {bad}"
 
 

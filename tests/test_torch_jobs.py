@@ -19,7 +19,8 @@ on the CPU, at the reference's own toy size (tests/test_pipeline.py:19-45:
   and takes the job's alpha.
 - Batches: priority order, and a pipelined batch whose outputs equal
   sequential runs, its device stages one job at a time.
-- ``roi_regions`` and ``--checkpoint``.
+- ``roi_regions`` (commercial QA on the proxy, in ``process`` and in a
+  batch job) and ``--checkpoint``.
 """
 
 import os
@@ -379,16 +380,58 @@ def test_process_batch_stress(tmp_path):
         np.testing.assert_array_equal(read_tiff(jobs[i]["output"]), read_tiff(res.output_path))
 
 
-def test_roi_regions_raise_not_implemented(input_png, tmp_path):
-    pipe = _port({}, provider="bicubic")
-    rois = [{"type": "brand", "bbox": [10, 10, 50, 50], "reference_color": (200, 30, 30)}]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        pipe.process(input_png, str(tmp_path / "roi.tiff"), roi_regions=rois)
+# Commercial QA keys on the input-size proxy, within the commercial
+# metrics' tolerance (tests/test_torch_commercial.py): relative 1e-4,
+# absolute 1e-6; the brand's level equal.
+ROIS = [{"type": "text", "bbox": [8, 8, 60, 24]},
+        {"type": "product", "bbox": [70, 30, 60, 60]},
+        {"type": "face", "bbox": [20, 60, 40, 40]},
+        {"type": "brand", "bbox": [10, 10, 50, 50], "reference_color": (200, 30, 30)},
+        {"type": "text", "bbox": [500, 500, 10, 10]}]
+
+
+def _commercial(report):
+    return {k: v for k, v in report.items() if k.startswith((
+        "global_sharpness", "high_frequency_ratio", "text_", "product_", "face_", "skin_",
+        "brand_", "color_variance", "oversharpen", "artifact", "noise_level", "brightness",
+        "commercial_score"))}
+
+
+def _commercial_close(got, ref):
+    got, ref = _commercial(got), _commercial(ref)
+    assert list(got) == list(ref) and "brand_color_accuracy_3" in got
+    assert "text_sharpness_4" not in got
+    for k, v in ref.items():
+        if isinstance(v, str):
+            assert got[k] == v, k
+        else:
+            assert got[k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
+
+
+def test_roi_regions_raise_not_implemented(input_png, tmp_path, monkeypatch):
+    """(Named for the time when ROIs raised.) ``process(roi_regions=...)``
+    and a ``process_batch`` job with ROIs add the reference's commercial
+    keys to the QA report, computed on the input-size proxy with the boxes
+    in input coordinates; the batch's job without ROIs gets none, and
+    with QA off ROIs are ignored. Both sides serve ``bicubic`` with QA on."""
+    ref = _reference(tmp_path, monkeypatch, provider="bicubic", enable_qa=True)
+    port = _port({}, provider="bicubic", enable_qa=True)
+    want = ref.process(input_png, str(tmp_path / "ref.png"), roi_regions=ROIS)
+    got = port.process(input_png, str(tmp_path / "roi.tiff"), roi_regions=ROIS)
+    assert want.success and got.success, (want.error_message, got.error_message)
+    _commercial_close(got.quality_report, want.quality_report)
+
     jobs = [{"input": input_png, "output": str(tmp_path / "a.tiff")},
-            {"input": input_png, "output": str(tmp_path / "b.tiff"), "roi_regions": rois}]
-    with pytest.raises(NotImplementedError, match="commercial QA"):
-        pipe.process_batch(jobs)
-    assert not any(f.endswith(".tiff") for f in os.listdir(tmp_path))
+            {"input": input_png, "output": str(tmp_path / "b.tiff"), "roi_regions": ROIS}]
+    ref_jobs = [dict(j, output=j["output"].replace(".tiff", ".png")) for j in jobs]
+    batch, ref_batch = port.process_batch(jobs), ref.process_batch(ref_jobs)
+    assert all(r.success for r in batch + ref_batch)
+    assert _commercial(batch[0].quality_report) == {} == _commercial(ref_batch[0].quality_report)
+    _commercial_close(batch[1].quality_report, ref_batch[1].quality_report)
+
+    off = _port({}, provider="bicubic").process(input_png, str(tmp_path / "off.tiff"),
+                                                roi_regions=ROIS)
+    assert off.success and off.quality_report is None
 
 
 def test_cli_checkpoint_runs_and_resumes(input_png, tmp_path, monkeypatch):

@@ -30,6 +30,7 @@ from srs_tpu_torch.models.registry import build_model, convert_flax_params
 from srs_tpu_torch.models.sr_module import SuperResolutionModule, scale_ladder
 from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
 from srs_tpu_torch.tiling.tiling import TilingModule
+from test_torch_tile_store import load_reference_native
 
 BF16_PSNR_FLOOR = 45.0
 TARGET = "720x720"
@@ -260,6 +261,9 @@ def _report_close(got, ref, rel_all=None):
 
 @pytest.mark.parametrize("floor,route", [(0.0, "quality"), (5.0, "shrink")])
 def test_bench_path_matches_reference(bench_weights, tmp_path, floor, route):
+    # the reference writes its TIFF with its own native writer, whatever
+    # another worker's build did (test_torch_tile_store.load_reference_native)
+    load_reference_native()
     image = _bench_image()
     jcfg = JaxConfig(block_size=64, overlap_ratio=0.2, target_resolution=BENCH_TARGET,
                      ibp_steps=4, sr_gain_floor=floor)

@@ -11,11 +11,13 @@ array for array (exact: npz holds the arrays as they are).
 
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
 from PIL import Image
 
+import srs_tpu.io.native as ref_native
 import srs_tpu.tiling.cache as ref_cache
 import srs_tpu_torch.tiling.cache as port_cache
 from srs_tpu.io.native import content_hash as ref_content_hash
@@ -99,12 +101,41 @@ def test_store_written_by_one_package_reads_in_the_other(tmp_path, writer, reade
     assert r.stats()["l2_files"] == len(data)
 
 
+def load_reference_native(timeout_s: float = 120.0):
+    """The reference's native library (``native/libsrstiff.so``), loaded.
+
+    The reference builds it in place with ``make`` when its stamp is
+    missing, which is so in a fresh checkout. Under pytest-xdist every
+    worker imports tests/test_native_io.py while it collects, and that
+    module's ``skipif`` loads the library then: several workers run
+    ``make`` at once, and one may find the half-written file of another
+    up to date and fail to load it. The reference's loader then remembers
+    the failure for the life of the worker (``_load_failed``): its
+    ``content_hash`` raises, and its pipeline saves TIFFs through PIL with
+    LZW. By the time a test runs the other build has finished, so the
+    failure is forgotten and the load tried again until it succeeds."""
+    deadline = time.time() + timeout_s
+    while True:
+        ref_native._load_failed = False
+        try:
+            return ref_native.load()
+        except ImportError:
+            if time.time() > deadline:
+                raise
+            time.sleep(1.0)
+
+
+@pytest.fixture(scope="module")
+def reference_native():
+    return load_reference_native()
+
+
 @pytest.mark.parametrize("data", [
     b"", b"abc", bytes(range(256)) * 3,
     np.arange(1000, dtype=np.uint16).reshape(10, 100)[:, ::3],  # not contiguous
     (np.random.default_rng(1).random((17, 9, 3)) * 255).astype(np.float32),
 ], ids=["empty", "abc", "bytes", "uint16_view", "float32"])
-def test_content_hash_matches_reference(data):
+def test_content_hash_matches_reference(data, reference_native):
     assert content_hash(data) == ref_content_hash(data)
 
 
