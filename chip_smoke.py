@@ -124,7 +124,35 @@ in order, each printing one JSON line with its seconds:
    tests' sizes (float32, TF32 off): the five fusions, the multigrid and
    Jacobi clones in each mode, split and merge, Canny, the commercial
    metrics with ROIs and a bicubic ``process(roi_regions=...)``;
-18. kernel_shapes: K1 and K2 timed at every distinct (input, output)
+18. subcommands: the operator subcommands on the bench configuration.
+   ``python3 -m srs_tpu_torch bench`` once in a subprocess (exit 0, one
+   JSON line, no row in the repository's BENCH_LOCAL.md); then the port's
+   bench (``srs_tpu_torch/bench.py``: the reference's ``render_photo``
+   input, which that run rendered, its knobs and its JSON line) in this
+   process, a warm-up with every K1/K2 launch held against the plain
+   version, then its timed ``process()`` with the counts reset: MP/s,
+   ``mfu_pct`` and ``chip_kind`` (``utils/flops.py``), the stage times;
+   ``info`` (backend cuda, the card among its devices); ``warmup`` at its
+   defaults; ``process --profile DIR`` on the bench input, whose trace
+   must name K1's and K2's device kernels;
+19. generate: generation at the packaged generator's width (base 64,
+   depth 2, 128 px): ``train_ark`` on the card at batch 64 on a
+   64-image class corpus, 200 steps (steps/s, TFLOP/s beside the bf16
+   peak, first and last chunk loss, which must fall, peak memory; the
+   checkpoint and ``ark_meta.json`` reload equal); ``python3 -m
+   srs_tpu_torch generate "product shot of a watch" out.png --size 2K
+   --checkpoint-dir`` that directory in a subprocess (a 2048x2048 PNG from
+   ``ark_gen-ddim``, 50 DDIM steps); the same call in this process with
+   the refinement, three times: the seconds of the sample, the SR ladder
+   and the refinement apart, its tile count, peak memory, the same seed
+   within 1 LSB, another class moving it well above that reproduction
+   noise;
+20. generate_reference: the generator card against CPU at the CPU tests'
+   sizes, float32 with TF32 off: the UNet, ``sample_ark`` and
+   ``refine_ark`` with the draws handed in, one batch's loss and
+   gradients, each within the CPU tests' tolerances; the bfloat16 sampler
+   above a PSNR floor;
+21. kernel_shapes: K1 and K2 timed at every distinct (input, output)
    shape that the warm-up runs launched, each with its launches per
    path, bound and share of the bound.
 
@@ -133,9 +161,11 @@ under ``torch.profiler`` and prints the device's busy share, per stage
 and in all, its time by kernel (K1 and K2 always, in all and per launch
 with its shape) and by op, and the in-place adds by input shape; and a
 zssr tune and a trainer run, each 30 steps of edsr_xl x3, with the busy
-share, device launches a step and time by kernel and op.
+share, device launches a step and time by kernel and op; and the
+generator's training step, 50-step sample and refinement chunk at the
+packaged width, likewise.
 Then it prints a ``done`` line with the total seconds, the kernels' JSON
-line (each kernel's entry with its ``shapes`` of phase 18), the ``nvidia-smi``
+line (each kernel's entry with its ``shapes`` of phase 21), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Without a CUDA card, or without the port
 beside it, it exits with code 2 and prints no result. Outputs go to a
@@ -2203,6 +2233,420 @@ def library_reference(torch, tmp: str) -> dict:
     return out
 
 
+# -- the operator subcommands and generation (phases 18-20) ---------------------
+
+# Environment of the bench runs: no row in any log, the work directory in
+# the smoke's temporary directory.
+BENCH_ENV = {"SRS_BENCH_NO_LOG": "1"}
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "elapsed_s", "output_mp",
+              "stage_times", "quality_score", "provider", "quality_model", "batch",
+              "d2h_link_MBps", "save_link_MBps", "compute_stages_s", "value_compute_bound",
+              "vs_baseline_compute_bound", "sr_tflops", "mfu_pct", "chip_kind",
+              "routed_model", "step_models")
+# The generator at the packaged model's width (srs_tpu/models/checkpoints/
+# ark_meta.json: base 64, depth 2, 128 px), trained at the reference's
+# batch on a small corpus: 200 steps in the reference's chunks of 100 (at
+# 100 steps another class moved the 2K image by 0.012 LSB on average, too
+# near GEN_CLASS_MIN_LSB to hold).
+GEN = dict(base=64, depth=2, size=128, batch=64, n_per_class=8, steps=200, scan_chunk=100)
+GEN_PROMPT, GEN_OTHER_PROMPT = "product shot of a watch", "a text poster page"
+# A generator trained for 200 steps has learned little of its classes (the
+# reference's slow test asks its packaged generator, trained by default for
+# 30,000 steps, to move the image by over 1 LSB on average,
+# tests/test_generative.py:171-176), so the smoke asks that another class
+# move the image well above the same seed's reproduction noise.
+GEN_CLASS_MOVES, GEN_CLASS_MIN_LSB = 10.0, 0.01
+# Card against CPU (float32, TF32 off), the CPU tests' tolerances: the UNet
+# within 1e-4, the sampler and the refinement within 1e-3 on [0, 255], the
+# loss within relative 1e-5 and each gradient within relative 1e-4 of its
+# largest entry; the bfloat16 sampler above a PSNR floor (both sides round
+# every layer's output to bfloat16, in other summation orders, for 3 DDIM
+# steps).
+GEN_REF = dict(unet_atol=1e-4, sample_atol=1e-3, loss_rtol=1e-5, grad_rtol=1e-4)
+SAMPLE_BF16_PSNR_FLOOR = 30.0
+
+
+@contextlib.contextmanager
+def environment(**env):
+    """``os.environ`` with ``env`` set while open."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cli_json(args) -> tuple:
+    """(exit code, stdout) of ``srs_tpu_torch.cli.main(args)`` in this
+    process."""
+    import io
+
+    from srs_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(args)
+    return rc, buf.getvalue()
+
+
+def trace_kernels(trace_dir: str) -> dict:
+    """The device kernels of the one ``torch.profiler`` trace file in
+    ``trace_dir``: count and milliseconds of K1's and K2's (the device
+    functions ``pyr_down_kernel`` and ``pyr_up_kernel`` that the C entry
+    points ``srs_pyr_down_f32`` and ``srs_pyr_up_f32`` launch), and of all."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        fail(f"subcommands: process --profile wrote {files} into {trace_dir}")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out = {"file": files[0], "bytes": os.path.getsize(path), "kernel_events": len(kernels),
+           "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3}
+    for name in ("pyr_down", "pyr_up"):
+        ks = [e for e in kernels if f"{name}_kernel" in e.get("name", "")]
+        out[name] = {"launches": len(ks), "ms": sum(e.get("dur", 0) for e in ks) / 1e3,
+                     "entry_point": f"srs_{name}_f32"}
+        if not ks:
+            fail(f"subcommands: the --profile trace names no {name}_kernel (srs_{name}_f32)")
+    return out
+
+
+def subcommands(torch, K, tmp: str) -> dict:
+    """Phase 18: the operator subcommands on the bench configuration.
+    ``python3 -m srs_tpu_torch bench`` once in a subprocess (exit 0, one
+    JSON line, no row in the repository's BENCH_LOCAL.md); then the port's
+    bench in this process on the input that run rendered (``bench_config``,
+    a warm-up with every K1/K2 launch held against the plain version, then
+    ``measure`` with the counts set to 0 just before its timed
+    ``process()`` and read just after); ``info`` (backend cuda, the card
+    among its devices); ``warmup`` at its defaults; ``process --profile
+    DIR`` on the bench input (the trace names K1's and K2's device
+    kernels)."""
+    import srs_tpu_torch.bench as B
+    from srs_tpu_torch.io.image import image_size
+    from srs_tpu_torch.pipeline import SuperResolutionPipeline
+
+    out: dict = {}
+    workdir = os.path.join(tmp, "bench")
+    repo_log = os.path.join(os.path.dirname(os.path.abspath(__file__)), "BENCH_LOCAL.md")
+    log_before = os.path.getsize(repo_log) if os.path.isfile(repo_log) else None
+    torch.cuda.empty_cache()  # the subprocess needs the card's memory this process caches
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "srs_tpu_torch", "bench"],
+                          env={**os.environ, **BENCH_ENV, "SRS_BENCH_DIR": workdir},
+                          capture_output=True, text=True, timeout=400)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"subcommands: python -m srs_tpu_torch bench exited {proc.returncode} with "
+             f"{len(lines)} JSON lines: {proc.stderr[-2000:]}")
+    sub_line = json.loads(lines[0])
+    if sub_line.get("metric") != "720p_to_100MP_end_to_end" or not sub_line["value"] > 0:
+        fail(f"subcommands: bench subprocess line {sub_line}")
+    out["bench_subprocess"] = {"seconds": time.time() - t0, "line": sub_line}
+    log_after = os.path.getsize(repo_log) if os.path.isfile(repo_log) else None
+    if log_after != log_before:
+        fail("subcommands: the bench wrote into the repository's BENCH_LOCAL.md")
+
+    inp = os.path.join(workdir, "input_720p.png")
+    outp = os.path.join(workdir, "output_100mp.tiff")
+    with environment(**BENCH_ENV, SRS_BENCH_DIR=workdir):
+        pipe = SuperResolutionPipeline(B.bench_config("cuda"))
+        K.reset_launches()
+        with held_against_plain(K) as records:
+            warm = pipe.process(inp, outp)
+        if not warm.success:
+            fail(f"subcommands: bench warm-up failed: {warm.error_message}")
+        held = check_held(K, "subcommands", records)
+        launches: dict = {}
+        real_process = pipe.process
+
+        def counted(*args, **kwargs):
+            K.reset_launches()
+            res = real_process(*args, **kwargs)
+            launches.update(K.LAUNCHES)
+            return res
+
+        pipe.process = counted
+        t0 = time.time()
+        line = B.measure(pipe, inp, outp, workdir)
+        out["measure_s"] = time.time() - t0
+        pipe.process = real_process
+    for kname in K.LAUNCHES:
+        if launches.get(kname, 0) <= 0:
+            fail(f"subcommands: the bench's timed run never launched {kname}")
+    missing = [k for k in BENCH_KEYS if k not in line]
+    kind = torch.cuda.get_device_name(0).lower()
+    if missing or not line["value"] > 0 or line["chip_kind"] != kind \
+            or not 0 < line["mfu_pct"] < 100 or abs(line["output_mp"] - 84.3) > 0.05:
+        fail(f"subcommands: bench line {line} (missing {missing})")
+    out.update(bench=line, launches=launches, held_against_plain=held,
+               launches_by_shape=launches_by_shape(held))
+
+    t0 = time.time()
+    rc, text = cli_json(["info"])
+    info = json.loads(text)
+    if rc != 0 or info["backend"] != "cuda" or torch.cuda.get_device_name(0) not in info["devices"]:
+        fail(f"subcommands: info exited {rc}: backend {info.get('backend')}, devices "
+             f"{info.get('devices')}")
+    out["info"] = {"seconds": time.time() - t0, "backend": info["backend"],
+                   "devices": info["devices"]}
+
+    t0 = time.time()
+    rc, text = cli_json(["warmup"])
+    if rc != 0 or not text.startswith("warmed 1280x720 -> 100MP"):
+        fail(f"subcommands: warmup exited {rc}: {text[-500:]}")
+    out["warmup"] = {"seconds": time.time() - t0, "stdout": text.strip()}
+
+    t0 = time.time()
+    trace_dir = os.path.join(tmp, "trace")
+    prof_out = os.path.join(tmp, "out_profiled_cli.tiff")
+    rc, text = cli_json(["process", inp, prof_out, "--profile", trace_dir])
+    if rc != 0 or image_size(prof_out) != MAIN_OUT:
+        fail(f"subcommands: process --profile exited {rc}: {text[-500:]}")
+    os.remove(prof_out)
+    out["process_profile"] = {"seconds": time.time() - t0, **trace_kernels(trace_dir)}
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return out
+
+
+def unet_flops(torch, module, size: int) -> int:
+    """FLOP (two per multiply-add) of one ``CondUNet`` forward pass on one
+    size x size input: its convolutions and linear layers from the shapes
+    they see, and each attention's two matrix products."""
+    from srs_tpu_torch.models.generative import _Attn
+
+    total = []
+
+    def conv(mod, inp, out):
+        kh, kw = mod.kernel_size
+        total.append(2 * out.numel() * mod.in_channels // mod.groups * kh * kw)
+
+    def linear(mod, inp, out):
+        total.append(2 * out.numel() * mod.in_features)
+
+    def attn(mod, inp, out):
+        b, c, h, w = inp[0].shape
+        total.append(2 * 2 * b * (h * w) ** 2 * c)
+
+    kinds = ((torch.nn.Conv2d, conv), (torch.nn.Linear, linear), (_Attn, attn))
+    hooks = [m.register_forward_hook(fn) for m in module.modules()
+             for cls, fn in kinds if isinstance(m, cls)]
+    dev = next(module.parameters()).device
+    with torch.no_grad():
+        module(torch.zeros(1, size, size, 3, device=dev), torch.zeros(1, device=dev),
+               torch.zeros(1, dtype=torch.long, device=dev))
+    for hk in hooks:
+        hk.remove()
+    return int(sum(total))
+
+
+def generate_phase(torch, tmp: str) -> dict:
+    """Phase 19: generation at the packaged width (``GEN``). ``train_ark``
+    on the card (steps/s, TFLOP/s, first and last chunk loss, peak memory;
+    the checkpoint and ``ark_meta.json`` reload equal); ``python3 -m
+    srs_tpu_torch generate ... --size 2K --checkpoint-dir`` that directory
+    in a subprocess (a 2048x2048 PNG from ``ark_gen-ddim`` at 50 steps);
+    the same call in this process with the refinement, three times: the
+    seconds of the sample, the SR ladder and the refinement, the tile
+    count and peak memory, the same seed within 1 LSB, another class
+    moving the image well above that (``GEN_CLASS_MOVES``)."""
+    from srs_tpu_torch.io.image import image_size, load_image
+    from srs_tpu_torch.models.generate import ARKImageConfig, ARKImageGenerator
+    from srs_tpu_torch.models.generative import ark_meta, make_class_corpus, train_ark
+    from srs_tpu_torch.models.registry import load_checkpoint
+    from srs_tpu_torch.tiling.geometry import compute_layout
+
+    ckpt = os.path.join(tmp, "ark")
+    t0 = time.time()
+    corpus = make_class_corpus(GEN["n_per_class"], GEN["size"], seed=0)
+    corpus_s = time.time() - t0
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    module, ema, loss = train_ark(
+        steps=GEN["steps"], size=GEN["size"], base=GEN["base"], depth=GEN["depth"],
+        batch=GEN["batch"], scan_chunk=GEN["scan_chunk"], corpus=corpus, checkpoint_dir=ckpt,
+        device="cuda", on_step=lambda i, v: losses.append(v))
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = torch.stack(losses).float().cpu().numpy()
+    chunk = GEN["scan_chunk"]
+    first, last = float(per_step[:chunk].mean()), float(per_step[-chunk:].mean())
+    if len(per_step) != GEN["steps"] or not np.isfinite(per_step).all() or not last < first:
+        fail(f"generate: {len(per_step)} steps, first chunk {first}, last chunk {last}")
+    if abs(loss - last) > 1e-5 * max(1.0, abs(last)):
+        fail(f"generate: returned loss {loss} is not the last chunk's mean {last}")
+    saved = load_checkpoint("ark_gen", 1, ckpt)
+    meta = ark_meta(ckpt)
+    if saved is None or any(not torch.equal(saved[k], v) for k, v in ema.items()) \
+            or meta != {k: GEN[k] for k in ("size", "base", "depth")}:
+        fail(f"generate: the checkpoint does not reload as the EMA weights (meta {meta})")
+    flops = 3 * GEN["batch"] * unet_flops(torch, module, GEN["size"])
+    del module
+    train = {
+        "config": GEN, "corpus_s": corpus_s, "train_s": train_s,
+        "steps_per_s": GEN["steps"] / train_s, "step_tflop": flops / 1e12,
+        "tflop_per_s": flops * GEN["steps"] / train_s / 1e12,
+        "pct_of_bf16_peak": 100.0 * flops * GEN["steps"] / train_s / BF16_FLOPS,
+        "first_chunk_loss": first, "last_chunk_loss": last, "peak_mem_gb": train_peak,
+    }
+
+    # the command line, once, in its own process
+    png = os.path.join(tmp, "generated_2k.png")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "srs_tpu_torch", "generate", GEN_PROMPT, png,
+                           "--size", "2K", "--checkpoint-dir", ckpt],
+                          capture_output=True, text=True, timeout=300)
+    cli_s = time.time() - t0
+    if proc.returncode != 0 or "ark_gen-ddim" not in proc.stdout \
+            or image_size(png) != (2048, 2048):
+        fail(f"generate: the command line exited {proc.returncode}: {proc.stdout[-500:]} "
+             f"{proc.stderr[-2000:]}")
+    img = load_image(png)
+    if not 5.0 < float(img.std()) or not np.isfinite(img).all():
+        fail(f"generate: the 2K PNG is flat (std {img.std()})")
+    cli = {"seconds": cli_s, "stdout": proc.stdout.strip().splitlines()[-1:],
+           "png_bytes": os.path.getsize(png), "png_std": float(img.std())}
+    os.remove(png)
+
+    # in this process, with the refinement
+    gen = ARKImageGenerator(checkpoint_dir=ckpt, device="cuda")
+
+    def timed(prompt, seed=None):
+        t0 = time.time()
+        r = gen.generate(prompt, ARKImageConfig(size="2K", seed=seed, extra={"refine": True}))
+        r.metadata["wall_s"] = time.time() - t0
+        return r
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = [timed(GEN_PROMPT), timed(GEN_PROMPT)]
+    runs.append(timed(GEN_OTHER_PROMPT, seed=runs[0].seed))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    r1, r2, r3 = runs
+    for r in runs:
+        if r.metadata.get("model") != "ark_gen-ddim" or r.image.shape != (2048, 2048, 3) \
+                or r.metadata["steps"] != 50 or not r.metadata["refined"] \
+                or not np.isfinite(r.image).all():
+            fail(f"generate: in-process run {r.metadata} {r.image.shape}")
+    # The same seed reproduces the image within 1 LSB; another class moves
+    # it, on average, by more than GEN_CLASS_MOVES times what the same seed
+    # does and by at least GEN_CLASS_MIN_LSB.
+    again = np.abs(r1.image - r2.image)
+    same = {"max": float(again.max()), "mean": float(again.mean())}
+    moved = np.abs(r3.image - r1.image)
+    other = {"max": float(moved.max()), "mean": float(moved.mean()),
+             "share_over_1_lsb": float((moved > 1.0).mean())}
+    if same["max"] > 1.0 or r3.metadata["class"] == r1.metadata["class"] \
+            or other["mean"] < max(GEN_CLASS_MOVES * same["mean"], GEN_CLASS_MIN_LSB):
+        fail(f"generate: the same seed moves the image by {same}; another class "
+             f"({r3.metadata['class']}) by {other}")
+    tiles = compute_layout(2048, 2048, block_size=GEN["size"], overlap_ratio=0.25).num_tiles
+    return {
+        "train": train, "cli": cli,
+        "in_process": {"metadata": [r.metadata for r in runs], "refine_tiles": tiles,
+                       "peak_mem_gb": peak, "same_seed_abs": same,
+                       "other_class_abs": other},
+    }
+
+
+def _seeded_unet_state(torch, base: int, depth: int, seed: int) -> dict:
+    """A float32 ``CondUNet`` state dict with every entry random (the
+    zero-initialised layers too, so every path carries signal)."""
+    from srs_tpu_torch.models.generative import CondUNet
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, ref in CondUNet(base=base, depth=depth, dtype="float32").state_dict().items():
+        fan_in = ref[0].numel() if ref.dim() > 1 else ref.shape[0]
+        sd[k] = torch.randn(ref.shape, generator=gen) * (0.3 / fan_in ** 0.5) \
+            + (1.0 if ".norm" in k and k.endswith("weight") else 0.0)
+    return sd
+
+
+def generate_reference(torch) -> dict:
+    """Phase 20: the generator card against CPU at the CPU tests' sizes
+    (``CondUNet(base=8, depth=2)`` at 16 px, seeded weights), float32 with
+    TF32 off: the UNet's forward, ``sample_ark`` (3 steps, the noise handed
+    in), ``refine_ark`` (the eps handed in), one ``train_ark`` batch's loss
+    and gradients; and the bfloat16 sampler above its PSNR floor."""
+    from srs_tpu_torch.models.generative import CondUNet, ark_loss, refine_ark, sample_ark
+    from srs_tpu_torch.tiling.geometry import compute_layout
+
+    torch.backends.cudnn.allow_tf32 = False
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = _seeded_unet_state(torch, 8, 2, seed=21)
+    rng = np.random.default_rng(22)
+    x = rng.normal(size=(3, 16, 16, 3)).astype(np.float32)
+    t = rng.uniform(1e-4, 1.0, 3).astype(np.float32)
+    y = np.asarray([0, 4, 8])
+    noise = rng.normal(size=(1, 16, 16, 3)).astype(np.float32)
+    yy, xx = np.mgrid[0:40, 0:56].astype(np.float32)
+    img = np.clip(np.stack([yy * 6, xx * 4, yy * 3 + xx * 2], -1), 0, 255).astype(np.float32)
+    n_tiles = compute_layout(56, 40, block_size=16, overlap_ratio=0.25).num_tiles
+    eps = rng.normal(size=(n_tiles, 16, 16, 3)).astype(np.float32)
+    x0 = rng.uniform(-1, 1, (4, 16, 16, 3)).astype(np.float32)
+    yb = np.asarray([1, 3, 8, 6])
+    tb = rng.uniform(1e-4, 1.0, 4).astype(np.float32)
+    eb = rng.normal(size=x0.shape).astype(np.float32)
+    got: dict = {}
+    for device in ("cuda", "cpu"):
+        r: dict = {}
+        for dtype in ("float32", "bfloat16"):
+            m = CondUNet(base=8, depth=2, dtype=dtype)
+            m.load_state_dict(sd)
+            m = m.to(device).eval()
+            r[f"sample_{dtype}"] = sample_ark(m, 2, size=16, steps=3, guidance=2.0,
+                                              noise=noise).cpu().numpy()
+            if dtype == "bfloat16":
+                continue
+            with torch.no_grad():
+                r["unet"] = m(*(torch.from_numpy(a).to(device) for a in (x, t, y))).cpu().numpy()
+            r["refine"] = refine_ark(m, img, 2, t0=0.08, steps=3, tile=16, chunk=8,
+                                     eps=eps).cpu().numpy()
+            m.requires_grad_(True)
+            loss = ark_loss(m, *(torch.from_numpy(a).to(device) for a in (x0, yb, tb, eb)))
+            loss.backward()
+            r["loss"] = float(loss.detach())
+            r["grads"] = {k: p.grad.cpu().numpy() for k, p in m.named_parameters()}
+        got[device] = r
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    gpu, cpu = got["cuda"], got["cpu"]
+    out = {"tolerance": {**GEN_REF, "sample_bf16_psnr_floor_db": SAMPLE_BF16_PSNR_FLOOR}}
+    for key, tol in (("unet", GEN_REF["unet_atol"]), ("sample_float32", GEN_REF["sample_atol"]),
+                     ("refine", GEN_REF["sample_atol"])):
+        out[key] = float(np.abs(gpu[key] - cpu[key]).max())
+        if gpu[key].shape != cpu[key].shape or out[key] > tol:
+            fail(f"generate_reference: {key}: card against CPU max abs err {out[key]} > {tol}")
+    out["loss"] = [gpu["loss"], cpu["loss"]]
+    if abs(gpu["loss"] - cpu["loss"]) > GEN_REF["loss_rtol"] * abs(cpu["loss"]):
+        fail(f"generate_reference: loss card {gpu['loss']} CPU {cpu['loss']}")
+    worst = 0.0
+    for k, g in cpu["grads"].items():
+        rel = float(np.abs(gpu["grads"][k] - g).max() / max(np.abs(g).max(), 1e-30))
+        worst = max(worst, rel)
+    out["grad_max_rel"] = worst
+    if worst > GEN_REF["grad_rtol"]:
+        fail(f"generate_reference: gradients card against CPU relative {worst}")
+    a, b = gpu["sample_bfloat16"].astype(np.float64), cpu["sample_bfloat16"].astype(np.float64)
+    out["sample_bf16_psnr_db"] = float(10 * np.log10(255.0**2 / max(np.mean((a - b) ** 2),
+                                                                      1e-12)))
+    if out["sample_bf16_psnr_db"] < SAMPLE_BF16_PSNR_FLOOR:
+        fail(f"generate_reference: bf16 sample {out['sample_bf16_psnr_db']:.2f} dB < "
+             f"{SAMPLE_BF16_PSNR_FLOOR}")
+    return out
+
+
 def self_dev_ms(e) -> float:
     """An op's own device milliseconds in ``key_averages()``, under either
     name the profiler has given it."""
@@ -2275,6 +2719,88 @@ def profile_training(torch, image: np.ndarray) -> dict:
         }
     return out
 
+
+
+def profile_generation(torch) -> dict:
+    """The generator at the packaged width (``GEN``, seeded weights) under
+    torch.profiler, each after a warm-up: 10 ``train_ark`` steps at batch
+    64 (``ark_loss``, backward, the clip-then-Adam step and the EMA, on
+    fixed draws), the 50-step DDIM sample at batch 2, and one refinement
+    chunk (64 tiles, 8 steps: 8 UNet calls at batch 128). For each: the
+    device's busy share of the wall time, device launches per UNet call or
+    step, and the time by kernel and by op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from srs_tpu_torch.models.generative import (CondUNet, _ddim, _ema_update, _linspace,
+                                                 ark_loss, sample_ark)
+    from srs_tpu_torch.models.train import make_optimizer
+
+    module = CondUNet(base=GEN["base"], depth=GEN["depth"])
+    module.load_state_dict(_seeded_unet_state(torch, GEN["base"], GEN["depth"], seed=31))
+    module = module.cuda()
+    params = list(module.parameters())
+    ema = [p.detach().clone() for p in params]
+    opt = make_optimizer(params, 2e-4)
+    gen = torch.Generator("cuda").manual_seed(0)
+    size, b = GEN["size"], GEN["batch"]
+    x0 = torch.rand((b, size, size, 3), generator=gen, device="cuda") * 2 - 1
+    y = torch.randint(0, 9, (b,), generator=gen, device="cuda")
+    t = torch.rand(b, generator=gen, device="cuda")
+    eps = torch.randn(x0.shape, generator=gen, device="cuda")
+    tiles = torch.rand((64, size, size, 3), generator=gen, device="cuda") * 2 - 1
+    ts = _linspace(0.22, 0.0, 9, device=torch.device("cuda"))
+
+    def train(n):
+        module.requires_grad_(True).train()
+        for _ in range(n):
+            opt.zero_grad()
+            ark_loss(module, x0, y, t, eps).backward()
+            opt.step()
+            _ema_update(ema, params, 0.999)
+
+    def sample(n):
+        module.eval().requires_grad_(False)
+        for _ in range(n):
+            sample_ark(module, 6, size=size, steps=50, guidance=2.625)
+
+    def refine(n):
+        module.eval().requires_grad_(False)
+        with torch.no_grad():
+            for _ in range(n):
+                _ddim(module, tiles, 6, ts, 2.0)
+
+    runs = {"train_step": (train, 10, 1), "sample_50_steps": (sample, 1, 50),
+            "refine_chunk": (refine, 1, 8)}
+    out = {}
+    for name, (run, n, calls) in runs.items():
+        run(2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            run(n)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        spans, by_name = [], {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or e.name.startswith("Optimizer."):
+                continue
+            spans.append((e.time_range.start, e.time_range.end))
+            ms, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, k + 1)
+        busy_us = sum(hi - lo for lo, hi in busy_intervals(spans))
+        ops = sorted(((e.key, self_dev_ms(e), e.count) for e in prof.key_averages()
+                      if e.key.startswith("aten::") and self_dev_ms(e) > 0),
+                     key=lambda r: -r[1])[:12]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        out[name] = {
+            "runs": n, "wall_s": wall, "ms_per_run": wall / n * 1e3,
+            "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / wall,
+            "device_events_per_unet_call": len(spans) / n / calls,
+            "top_device_ms": [[k[:120], round(ms, 3), c] for k, (ms, c) in top],
+            "top_ops_self_device_ms": [[k, round(ms, 3), c] for k, ms, c in ops],
+        }
+    return out
 
 def profile_main_path(torch, K, pipe, image, tmp: str) -> dict:
     """One more run of a path under torch.profiler: the device's busy share
@@ -2436,12 +2962,23 @@ def main() -> int:
         emit("library_reference", t0, **library_reference(torch, tmp))
 
         t0 = time.time()
+        sub = subcommands(torch, K, tmp)
+        emit("subcommands", t0, **sub)
+
+        t0 = time.time()
+        emit("generate", t0, **generate_phase(torch, tmp))
+
+        t0 = time.time()
+        emit("generate_reference", t0, **generate_reference(torch))
+
+        t0 = time.time()
         held = {"main_path": main["held_against_plain"], "zssr": zssr["held_against_plain"],
                 "bench_path": bench["held_against_plain"],
                 "cli_path": cli["held_against_plain"],
                 **{f"provider_{k}": v["held_against_plain"] for k, v in prov.items()},
                 **{f"jobs_{k}": job_nums[k]["held_against_plain"] for k in JOB_CASES},
-                "library": lib["held_against_plain"]}
+                "library": lib["held_against_plain"],
+                "subcommands": sub["held_against_plain"]}
         shapes = time_kernel_shapes(torch, K, held)
         emit("kernel_shapes", t0, **shapes)
 
@@ -2456,6 +2993,8 @@ def main() -> int:
                  **profile_main_path(torch, K, prov_pipes["fusion"], image, tmp))
             t0 = time.time()
             emit("profile_training", t0, **profile_training(torch, image))
+            t0 = time.time()
+            emit("profile_generation", t0, **profile_generation(torch))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2474,7 +3013,8 @@ def main() -> int:
                                  **{f"provider_{k}": v["launches"][name]
                                     for k, v in prov.items()},
                                  **{f"jobs_{k}": job_nums[k]["launches"][name] for k in JOB_CASES},
-                                 "library": lib["launches"][name]},
+                                 "library": lib["launches"][name],
+                                 "subcommands": sub["launches"][name]},
             "max_abs_err": max(d["max_abs_err"],
                                *(h[name]["max_abs_err"] for h in held.values())),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],

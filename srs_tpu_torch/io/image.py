@@ -10,7 +10,7 @@ standard library's ``zlib`` and numpy:
 - :func:`save_image` writes ``.tif``/``.tiff`` through the port's native
   writer, ``.png`` through a zlib encoder at level 3 (the reference's PIL
   ``compress_level=3``), and anything else as JPEG through PIL.
-- :func:`image_size` reads a PNG's IHDR, or asks PIL.
+- :func:`image_size` reads a PNG's IHDR or a TIFF's first IFD, or asks PIL.
 
 Arrays are RGB float32 in [0, 255] throughout the port.
 """
@@ -240,6 +240,12 @@ def image_size(path: str) -> Tuple[int, int]:
             head = f.read(33)
         w, h = struct.unpack_from(">II", head, 16)
         return w, h
+    with open(path, "rb") as f:
+        is_tiff = f.read(4) == b"II*\x00"
+    if is_tiff:  # the port's writer; the card has no PIL
+        from .native import tiff_size
+
+        return tiff_size(path)
     from PIL import Image
 
     with Image.open(path) as im:

@@ -19,7 +19,7 @@ import shutil
 import struct
 import threading
 import zlib
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
@@ -106,6 +106,24 @@ class TiffStreamWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def tiff_size(path: str) -> Tuple[int, int]:
+    """(width, height) of a little-endian classic TIFF, from its first IFD
+    (the pixel data is not read)."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if head[:4] != b"II*\x00":
+            raise ValueError(f"{path}: not a little-endian classic TIFF")
+        f.seek(struct.unpack_from("<I", head, 4)[0])
+        (count,) = struct.unpack("<H", f.read(2))
+        entries = f.read(12 * count)
+    dims = {}
+    for e in range(count):
+        tag, typ = struct.unpack_from("<HH", entries, 12 * e)
+        if tag in (256, 257):
+            dims[tag] = struct.unpack_from("<H" if typ == 3 else "<I", entries, 12 * e + 8)[0]
+    return dims[256], dims[257]
 
 
 def read_tiff(path: str) -> np.ndarray:

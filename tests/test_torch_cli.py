@@ -120,7 +120,6 @@ def test_png_output_and_qa_report(png, tmp_path, capsys):
 
 @pytest.mark.parametrize("args,needle", [
     (["--mesh", "data=2"], "--mesh"),
-    (["--profile", "trace"], "--profile"),
 ])
 def test_unported_flags_exit_nonzero_with_their_message(png, tmp_path, capsys, args, needle):
     out = str(tmp_path / "o.tiff")
@@ -128,6 +127,21 @@ def test_unported_flags_exit_nonzero_with_their_message(png, tmp_path, capsys, a
     err = capsys.readouterr().err
     assert needle in err and "not ported" in err and "ROADMAP" in err
     assert not os.path.exists(out)
+
+
+def test_profile_writes_a_trace(png, tmp_path, capsys):
+    """``--profile DIR`` wraps the job in ``utils/profiling.device_trace``:
+    the job's output as without it, and a torch.profiler trace in DIR."""
+    trace_dir = tmp_path / "trace"
+    out = str(tmp_path / "o.tiff")
+    assert main(["process", png, out, *FLAGS, "--profile", str(trace_dir)]) == 0
+    printed = capsys.readouterr().out
+    assert f"profiler trace written to {trace_dir}" in printed and f"OK {out}" in printed
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1 and os.path.getsize(trace_dir / traces[0]) > 0
+    plain = str(tmp_path / "plain.tiff")
+    assert main(["process", png, plain, *FLAGS]) == 0
+    np.testing.assert_array_equal(read_tiff(out), read_tiff(plain))
 
 
 @pytest.mark.parametrize("args", [["--provider", "zssr", "--zssr-steps", "2"],
