@@ -152,7 +152,22 @@ in order, each printing one JSON line with its seconds:
    ``refine_ark`` with the draws handed in, one batch's loss and
    gradients, each within the CPU tests' tolerances; the bfloat16 sampler
    above a PSNR floor;
-21. kernel_shapes: K1 and K2 timed at every distinct (input, output)
+21. mesh: ``bench.py:69-83``'s configuration (the bench path's flags,
+   ledger and seeded ``edsr_xl``) with ``mesh_shape={"data": 2, "space":
+   2}`` on a virtual mesh of four shards on ``cuda:0``, handed in as
+   ``pipe.dispatcher``: the six tiles split over ``data`` (3 a shard), the
+   8064x11520 canvas over ``space`` (own 3456 rows, band 4608), the
+   sharded banded finalize for the save and the QA proxy. A cold call with
+   every K1/K2 launch held against the plain version, two warm calls with
+   the counts reset: MP/s, stage times, peak memory, halo bytes; the
+   sharded blend ran, no gather fallback, the TIFF 12245x6887 and within
+   1 LSB of the bench path's on all but 1e-3 of samples, no more memory
+   left allocated than the bench path left; and ``python3 -m srs_tpu_torch
+   process ... --mesh data=2`` exits non-zero with no output on one card;
+22. mesh_reference: the 2x2 mesh at small size (80x96 -> 864x720), card
+   (virtual mesh) against CPU (the CPU repeated) in float32 with TF32 off:
+   the sharded blend on both, TIFFs within 1 LSB;
+23. kernel_shapes: K1 and K2 timed at every distinct (input, output)
    shape that the warm-up runs launched, each with its launches per
    path, bound and share of the bound.
 
@@ -165,7 +180,7 @@ share, device launches a step and time by kernel and op; and the
 generator's training step, 50-step sample and refinement chunk at the
 packaged width, likewise.
 Then it prints a ``done`` line with the total seconds, the kernels' JSON
-line (each kernel's entry with its ``shapes`` of phase 21), the ``nvidia-smi``
+line (each kernel's entry with its ``shapes`` of phase 23), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Without a CUDA card, or without the port
 beside it, it exits with code 2 and prints no result. Outputs go to a
@@ -514,10 +529,12 @@ def time_kernel_shapes(torch, K, held_by_path: dict) -> dict:
 @contextlib.contextmanager
 def pyramid_calls(K, on_call):
     """While open, every pyrDown/pyrUp call the pipeline makes through
-    ``ops/pyramid.py`` and ``ops/blend.py`` launches the kernel as usual and
-    then calls ``on_call(name, input, output, dst_hw)``."""
+    ``ops/pyramid.py``, ``ops/blend.py`` and ``parallel/halo.py`` launches
+    the kernel as usual and then calls ``on_call(name, input, output,
+    dst_hw)``."""
     import srs_tpu_torch.ops.blend as blend
     import srs_tpu_torch.ops.pyramid as pyramid
+    import srs_tpu_torch.parallel.halo as halo
 
     def down(x):
         out = K.pyr_down(x)
@@ -530,7 +547,7 @@ def pyramid_calls(K, on_call):
         return out
 
     sites = [(pyramid, "pyr_down", down), (pyramid, "pyr_up", up), (blend, "pyr_down", down),
-             (blend, "pyr_up", up)]
+             (blend, "pyr_up", up), (halo, "pyr_up", up)]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
     for mod, attr, fn in sites:
         setattr(mod, attr, fn)
@@ -2647,6 +2664,181 @@ def generate_reference(torch) -> dict:
     return out
 
 
+# The mesh phases: bench.py:69-83's configuration on a 2x2 virtual mesh of
+# the one card (four shards on cuda:0, handed in as ``pipe.dispatcher``).
+MESH_SHAPE = {"data": 2, "space": 2}
+MESH_LSB_SHARE = 1e-3  # samples more than 0 LSB from the bench path's TIFF
+
+
+def virtual_mesh(torch, shape: dict):
+    """A ``MeshTileDispatcher`` over ``cuda:0`` repeated to the mesh's size."""
+    from srs_tpu_torch.parallel import MeshTileDispatcher, make_mesh
+
+    n = int(np.prod(list(shape.values())))
+    return MeshTileDispatcher(make_mesh(shape, [torch.device("cuda", 0)] * n))
+
+
+def lsb_apart(path: str, ref_path: str) -> tuple:
+    """(max |difference| in LSB, share of samples that differ) of two TIFFs."""
+    from srs_tpu_torch.io.native import read_tiff
+
+    a, b = read_tiff(path).astype(np.int16), read_tiff(ref_path).astype(np.int16)
+    if a.shape != b.shape:
+        fail(f"{path}: shape {a.shape} != {b.shape}")
+    d = np.abs(a - b)
+    return int(d.max()), float((d > 0).mean())
+
+
+def mesh_phase(torch, K, tmp: str, image: np.ndarray, bench_nums: dict) -> dict:
+    """Phase 21: ``bench.py:69-83``'s configuration (the bench path's
+    pipeline, ledger and seeded ``edsr_xl``) with ``mesh_shape={"data": 2,
+    "space": 2}`` on a virtual mesh of four shards on ``cuda:0``: a cold
+    call with every K1/K2 launch held against its plain version, then two
+    warm calls, each with the launch counts set to 0 just before it and
+    read just after. The sharded blend must run without the finalize's
+    gather fallback, the TIFF must be 12245x6887 and within 1 LSB of the
+    bench path's on all but 1e-3 of samples, and the job must leave no
+    more memory allocated than the bench path's did. Then ``python3 -m
+    srs_tpu_torch process ... --mesh data=2`` on this one-card host must
+    exit non-zero and write nothing: nothing fakes devices on the card."""
+    from srs_tpu_torch.io.image import save_image
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+
+    ledger = os.path.join(tmp, "ledger")  # bench_path wrote EVAL.json there
+    pipe = SuperResolutionPipeline(PipelineConfig(**QUALITY_PATH, checkpoint_dir=ledger),
+                                   xl_weights())
+    pipe.config.mesh_shape = dict(MESH_SHAPE)
+    pipe.dispatcher = virtual_mesh(torch, MESH_SHAPE)
+    path = os.path.join(tmp, "out_mesh.tiff")
+    bench_tiff = os.path.join(tmp, "out_bench_path.tiff")
+
+    K.reset_launches()
+    t0 = time.time()
+    with held_against_plain(K) as records:
+        cold = pipe.process(image, path)
+    cold_s = time.time() - t0
+    if not cold.success:
+        fail(f"mesh: cold process() failed: {cold.error_message}")
+    held = check_held(K, "mesh", records)
+    os.remove(path)
+
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem_before = torch.cuda.memory_allocated()
+        K.reset_launches()
+        t0 = time.time()
+        res = pipe.process(image, path)
+        elapsed = time.time() - t0
+        launches = dict(K.LAUNCHES)
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        if not res.success:
+            fail(f"mesh: process() failed: {res.error_message}")
+        for kname, n in launches.items():
+            if n <= 0:
+                fail(f"mesh never launched kernel {kname}")
+        runs.append({"elapsed_s": elapsed, "stage_times": res.stage_times,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "memory_allocated_before_after": [mem_before, mem_after],
+                     "launches": launches})
+    info = pipe.last_run_info
+    mesh = info["mesh"]
+    if not mesh["sharded_blend"] or mesh["gather_fallback"] is not False \
+            or mesh["shape"] != MESH_SHAPE or mesh["devices"] != 1:
+        fail(f"mesh: {mesh}")
+    w, h = MAIN_OUT
+    out = read_tiff(path)
+    if out.shape != (h, w, 3) or out.dtype != np.uint8:
+        fail(f"mesh: output {out.shape} {out.dtype} != ({h}, {w}, 3) uint8")
+    del out
+    max_lsb_apart, share = lsb_apart(path, bench_tiff)
+    if max_lsb_apart > 1 or share > MESH_LSB_SHARE:
+        fail(f"mesh: {max_lsb_apart} LSB from the bench path's TIFF on {share} of samples")
+    b_before, b_after = bench_nums["memory_allocated_before_after"]
+    leaks = [r["memory_allocated_before_after"][1] - r["memory_allocated_before_after"][0]
+             for r in runs]
+    if max(leaks) > (b_after - b_before) + LEAK_TOL_BYTES:
+        fail(f"mesh: {leaks} bytes left allocated, the bench path left {b_after - b_before}")
+    if info["models"] != bench_nums["models"] or info["provider"] != bench_nums["provider"]:
+        fail(f"mesh: served {info['provider']} {info['models']}, the bench path "
+             f"{bench_nums['provider']} {bench_nums['models']}")
+
+    # one card: a two-device mesh on the command line is refused
+    t0 = time.time()
+    png = os.path.join(tmp, "mesh_in.png")
+    save_image(png, image.astype(np.uint8))
+    refused = os.path.join(tmp, "out_mesh_refused.tiff")
+    proc = subprocess.run([sys.executable, "-m", "srs_tpu_torch", "process", png, refused,
+                           "--mesh", "data=2"], capture_output=True, text=True, timeout=300)
+    if proc.returncode == 0 or os.path.exists(refused) or "needs 2 devices" not in proc.stderr:
+        fail(f"mesh: --mesh data=2 on one card exited {proc.returncode}, output written "
+             f"{os.path.exists(refused)}: {proc.stderr[-1500:]}")
+    refusal = {"seconds": time.time() - t0, "exit_code": proc.returncode,
+               "error": proc.stderr.strip().splitlines()[-1]}
+    os.remove(png)
+    warm = runs[-1]
+    nums = {
+        "mesh_shape": mesh["shape"], "distinct_devices": mesh["devices"],
+        "sharded_blend": mesh["sharded_blend"], "gather_fallback": mesh["gather_fallback"],
+        "halo_bytes": mesh["halo_bytes"], "cold_s": cold_s, "cold_stage_times": cold.stage_times,
+        "runs": runs, "elapsed_s": warm["elapsed_s"], "output_mp": w * h / 1e6,
+        "mp_per_s": [w * h / 1e6 / r["elapsed_s"] for r in runs],
+        "bench_path_mp_per_s": bench_nums["mp_per_s"],
+        "peak_mem_gb": warm["peak_mem_gb"], "bench_path_peak_mem_gb": bench_nums["peak_mem_gb"],
+        "launches": warm["launches"], "held_against_plain": held,
+        "launches_by_shape": launches_by_shape(held),
+        "max_lsb_vs_bench_path": max_lsb_apart, "share_differing_vs_bench_path": share,
+        "leak_bytes": leaks, "provider": info["provider"], "models": info["models"],
+        "save_breakdown": info["save_breakdown"], "cli_refusal": refusal,
+    }
+    os.remove(path)
+    del pipe
+    torch.cuda.empty_cache()
+    return nums
+
+
+def mesh_reference(torch, tmp: str) -> dict:
+    """Phase 22: the 2x2 mesh's ``process()`` at small size (80x96 ->
+    864x720, seeded ``edsr_m``, routing, selection and QA off, two tile
+    rows), on the card (the virtual mesh of ``cuda:0``) and on the CPU (the
+    CPU repeated, ``mesh_shape`` in the config), float32 with TF32 off: the
+    sharded blend on both, TIFFs within 1 LSB."""
+    from srs_tpu_torch.models.registry import seeded_params
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    image = synthetic_image(80, 96, seed=3)
+    weights = {("edsr_m", s): seeded_params("edsr_m", s, seed=5 + s) for s in (2, 3, 4)}
+    flags = dict(block_size=64, target_resolution="864x720", quality_model="edsr_m",
+                 compute_dtype="float32", auto_route=False, per_scale_selection=False,
+                 enable_qa=False)
+    paths, infos = {}, {}
+    for device in ("cuda", "cpu"):
+        mesh_cfg = {"mesh_shape": dict(MESH_SHAPE)} if device == "cpu" else {}
+        pipe = SuperResolutionPipeline(PipelineConfig(**flags, device=device, **mesh_cfg),
+                                       weights)
+        if device == "cuda":
+            pipe.dispatcher = virtual_mesh(torch, MESH_SHAPE)
+        paths[device] = os.path.join(tmp, f"mesh_ref_{device}.tiff")
+        res = pipe.process(image, paths[device])
+        if not res.success:
+            fail(f"mesh_reference on {device} failed: {res.error_message}")
+        infos[device] = pipe.last_run_info["mesh"]
+        if not infos[device]["sharded_blend"]:
+            fail(f"mesh_reference on {device}: the sharded blend did not run: {infos[device]}")
+    torch.backends.cudnn.allow_tf32 = True
+    worst, share = lsb_apart(paths["cuda"], paths["cpu"])
+    if worst > 1:
+        fail(f"mesh_reference: card and CPU {worst} LSB apart")
+    for p in paths.values():
+        os.remove(p)
+    return {"shape": [720, 864, 3], "max_lsb": worst, "frac_differing": share,
+            "mesh": {d: {k: v for k, v in m.items() if k != "shape"} for d, m in infos.items()}}
+
+
 def self_dev_ms(e) -> float:
     """An op's own device milliseconds in ``key_averages()``, under either
     name the profiler has given it."""
@@ -2972,13 +3164,21 @@ def main() -> int:
         emit("generate_reference", t0, **generate_reference(torch))
 
         t0 = time.time()
+        mesh = mesh_phase(torch, K, tmp, image, bench)
+        emit("mesh", t0, **mesh)
+
+        t0 = time.time()
+        emit("mesh_reference", t0, **mesh_reference(torch, tmp))
+
+        t0 = time.time()
         held = {"main_path": main["held_against_plain"], "zssr": zssr["held_against_plain"],
                 "bench_path": bench["held_against_plain"],
                 "cli_path": cli["held_against_plain"],
                 **{f"provider_{k}": v["held_against_plain"] for k, v in prov.items()},
                 **{f"jobs_{k}": job_nums[k]["held_against_plain"] for k in JOB_CASES},
                 "library": lib["held_against_plain"],
-                "subcommands": sub["held_against_plain"]}
+                "subcommands": sub["held_against_plain"],
+                "mesh": mesh["held_against_plain"]}
         shapes = time_kernel_shapes(torch, K, held)
         emit("kernel_shapes", t0, **shapes)
 
@@ -3014,7 +3214,8 @@ def main() -> int:
                                     for k, v in prov.items()},
                                  **{f"jobs_{k}": job_nums[k]["launches"][name] for k in JOB_CASES},
                                  "library": lib["launches"][name],
-                                 "subcommands": sub["launches"][name]},
+                                 "subcommands": sub["launches"][name],
+                                 "mesh": mesh["launches"][name]},
             "max_abs_err": max(d["max_abs_err"],
                                *(h[name]["max_abs_err"] for h in held.values())),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],

@@ -22,9 +22,12 @@ keeps the upscaled tiles in the port's tile store
 from them. ``--profile DIR`` writes a ``torch.profiler`` trace of the
 job into DIR (``utils/profiling.device_trace``). ``bench`` is
 ``srs_tpu_torch/bench.py`` (its row goes to
-``~/.cache/srs_tpu_torch/BENCH_LOCAL.md``). Not ported: ``--mesh``, which
-exits with code 2 naming its ROADMAP item, and the ``webui`` subcommand
-(ROADMAP Queue 1: items 6 and 7).
+``~/.cache/srs_tpu_torch/BENCH_LOCAL.md``). ``--mesh data=4,space=2``
+runs ``process`` on a device mesh (``parallel/``): over the CUDA devices
+torch sees, where a mesh that needs more of them raises ``ValueError`` as
+in the reference, or with ``--device cpu`` over the CPU repeated to the
+mesh's size. Not ported: the ``webui`` subcommand (ROADMAP Queue 1, item
+7).
 """
 
 from __future__ import annotations
@@ -34,21 +37,16 @@ import os
 import sys
 from typing import List, Optional
 
-# Flags of the reference whose feature the port has not yet: (the
-# attribute, the value that means "not asked for", what holds it).
-_UNPORTED_FLAGS = (
-    ("mesh", None, "--mesh: the parallel/ mesh (ROADMAP Queue 1, item 6: parallel/ on "
-                   "torch.distributed)"),
-)
-
-
 def _cmd_process(args: argparse.Namespace) -> int:
-    for attr, default, what in _UNPORTED_FLAGS:
-        if getattr(args, attr) != default:
-            print(f"NotImplementedError: {what} is not ported yet", file=sys.stderr)
-            return 2
     from .pipeline import PipelineConfig, SuperResolutionPipeline
 
+    mesh_shape = None
+    if args.mesh:
+        # "data=4,space=2" -> {"data": 4, "space": 2}
+        mesh_shape = {
+            k.strip(): int(v)
+            for k, v in (part.split("=") for part in args.mesh.split(","))
+        }
     try:
         cfg = PipelineConfig(
             block_size=args.block_size,
@@ -69,6 +67,7 @@ def _cmd_process(args: argparse.Namespace) -> int:
             zssr_steps=args.zssr_steps,
             checkpoint_dir=os.path.expanduser(args.checkpoint_dir),
             device=args.device,
+            mesh_shape=mesh_shape,
         )
     except NotImplementedError as e:
         print(f"NotImplementedError: {e}", file=sys.stderr)
@@ -266,7 +265,9 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR,
                     help="directory of trained nets ({model}_x{scale}.pt, as train saves "
                          "them) and of EVAL.json / FUSION.json")
-    pp.add_argument("--mesh", default=None, help="device mesh (not ported)")
+    pp.add_argument("--mesh", default=None,
+                    help="device mesh, e.g. data=4,space=2: the cards torch sees (a mesh "
+                         "larger than that fails), or with --device cpu the CPU repeated")
     pp.add_argument("--bit-depth", type=int, default=8, choices=[8, 16],
                     help="output bit depth (16 requires TIFF output)")
     pp.add_argument("--seam-repair", action="store_true",

@@ -100,17 +100,21 @@ def _clamp(start: int, size: int, extent: int) -> int:
     return min(max(int(start), 0), extent - size)
 
 
-def _accumulate_level(
+def _accumulate_level_sums(
     g_i: torch.Tensor,
     g_next: Optional[torch.Tensor],
     weight: Callable[[int], torch.Tensor],
     pos: np.ndarray,
     ch: int,
     cw: int,
-) -> torch.Tensor:
-    """One canvas-pyramid level: Laplacian G_i - pyrUp(G_{i+1}) formed here
-    (``g_next`` None at the coarsest level), tile t weighted by
-    ``weight(t)`` ([h, w, 1]), accumulated on the canvas and normalized."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One canvas-pyramid level before its normalization: the Laplacian
+    G_i - pyrUp(G_{i+1}) formed here (``g_next`` None: G_i as it is), tile
+    t weighted by ``weight(t)`` ([h, w, 1]) and accumulated at ``pos[t]``
+    (clamped as ``lax.dynamic_slice`` clamps) on a [ch, cw] canvas.
+    Returns (weighted sum, weight sum). The sharded blend
+    (``parallel/halo.py``) adds its neighbours' spill rows to both before
+    dividing."""
     n, tb_h, tb_w, c = g_i.shape
     lap = g_i if g_next is None else g_i - pyr_up(g_next, (tb_h, tb_w))
     num = torch.zeros((ch, cw, c), dtype=torch.float32, device=g_i.device)
@@ -121,6 +125,19 @@ def _accumulate_level(
         p1 = _clamp(pos[t, 1], tb_w, cw)
         num[p0 : p0 + tb_h, p1 : p1 + tb_w] += lap[t] * w
         den[p0 : p0 + tb_h, p1 : p1 + tb_w] += w
+    return num, den
+
+
+def _accumulate_level(
+    g_i: torch.Tensor,
+    g_next: Optional[torch.Tensor],
+    weight: Callable[[int], torch.Tensor],
+    pos: np.ndarray,
+    ch: int,
+    cw: int,
+) -> torch.Tensor:
+    """One canvas-pyramid level (:func:`_accumulate_level_sums`), normalized."""
+    num, den = _accumulate_level_sums(g_i, g_next, weight, pos, ch, cw)
     return num / torch.clamp(den, min=1e-8)
 
 

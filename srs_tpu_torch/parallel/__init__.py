@@ -1,0 +1,18 @@
+"""The device mesh (port of ``srs_tpu/parallel/``): ``mesh.py`` (meshes of
+``torch.device``s and placement descriptors), ``dispatch.py`` (the tile
+dispatcher), ``halo.py`` (the halo-exchange merge and Laplacian blend)
+and ``finalize.py`` (the sharded banded finalize)."""
+
+from .dispatch import MeshTileDispatcher
+from .halo import sharded_laplacian_blend, sharded_weighted_merge
+from .mesh import data_sharding, make_mesh, replicated, spatial_sharding
+
+__all__ = [
+    "MeshTileDispatcher",
+    "sharded_weighted_merge",
+    "sharded_laplacian_blend",
+    "make_mesh",
+    "data_sharding",
+    "spatial_sharding",
+    "replicated",
+]

@@ -50,6 +50,17 @@ order; with ``max_concurrent > 1`` on a thread pool whose device stages
 (SR to QA) one semaphore serializes, so one job's save overlaps the next
 job's SR and blend. Every job shares the card's default stream.
 
+With ``mesh_shape`` (or a ``MeshTileDispatcher`` set on
+``pipe.dispatcher``: a virtual mesh of one card) the SR stage splits the
+tile batch over the mesh's ``data`` axis, each shard on its device, and
+the Laplacian blend without post-passes keeps the canvas row-sharded over
+``space`` (``parallel/halo.py``) through a sharded banded finalize of the
+save bands and the QA proxy (``parallel/finalize.py``);
+``last_run_info["mesh"]`` records the shape, the distinct devices,
+whether the sharded blend ran, the halo copies' bytes and whether a
+finalize gathered the canvas (reference pipeline.py:245-250, 363-386,
+666-689, 1227-1272).
+
 Routing and the probe are best-effort, as in the reference: an exception
 there keeps the configured net and provider, and its text is recorded in
 ``last_run_info["routing"]["errors"]``.
@@ -63,6 +74,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import copy
 import dataclasses
 import hashlib
 import json
@@ -94,6 +106,9 @@ from .ops.color import color_correction
 from .ops.seam import detect_seams, repair_seams
 from .ops.tiles import extract_tiles, pad_image
 from .ops.weights import layout_weight_profiles, layout_weights
+from .parallel.dispatch import MeshTileDispatcher
+from .parallel.finalize import ShardedCanvas, sharded_finalize_banded
+from .parallel.mesh import make_mesh
 from .qa import noref
 from .qa.module import QualityAssessmentModule
 from .qa.niqe import brisque_scores, niqe_scores
@@ -197,6 +212,11 @@ class PipelineConfig:
     compute_dtype: str = "bfloat16"
     params_dtype: str = "float32"
     device: str = "cuda"
+    # Device mesh, e.g. {"data": 4, "space": 2}; None = one device. On
+    # "cuda" it spans the cards torch sees (a mesh larger than that
+    # raises); on "cpu" the CPU repeated to the mesh's size (a -1 axis
+    # takes 1).
+    mesh_shape: Optional[Dict[str, int]] = None
 
     def __post_init__(self) -> None:
         for name, served in _NOT_PORTED.items():
@@ -222,6 +242,14 @@ class PipelineResult:
     quality_report: Optional[Dict[str, Any]]
     error_message: Optional[str]
     stage_times: Dict[str, float] = field(default_factory=dict)
+
+
+def _canonical(device: torch.device) -> torch.device:
+    """``device`` with the current card's index where "cuda" names none."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _timed(it, split: Dict[str, float], key: str):
@@ -298,6 +326,20 @@ class SuperResolutionPipeline:
                                         max_concurrent=self.config.max_concurrent,
                                         initial_agents=0)
         self.scheduler.attach_mesh_devices(None if self.device.type == "cuda" else [self.device])
+        # The mesh: built from mesh_shape unless one was set on the
+        # instance (a virtual mesh on one card is handed in so, after
+        # construction: pipe.dispatcher = MeshTileDispatcher(...)).
+        if getattr(self, "dispatcher", None) is None:
+            self.dispatcher: Optional[MeshTileDispatcher] = None
+            if self.config.mesh_shape:
+                devices = None
+                if self.device.type != "cuda":
+                    n = int(np.prod([v for v in self.config.mesh_shape.values() if v > 0]))
+                    devices = [self.device] * n
+                self.dispatcher = MeshTileDispatcher(make_mesh(self.config.mesh_shape, devices))
+        # (device, net key) -> (source net, its copy there): the nets a
+        # mesh shard on another device serves, copied once per device
+        self._net_copies: Dict[Tuple[str, Any], Tuple[torch.nn.Module, torch.nn.Module]] = {}
         self._sched_tlock = threading.Lock()
         # Checked at every stage boundary; process_batch shares it between
         # its workers.
@@ -426,7 +468,12 @@ class SuperResolutionPipeline:
         step through ``upscale_tiles`` with the provider
         ``_serving_provider`` gives, with ``category``'s conditioned polish
         on the last step (on the tiles when the ladder is empty).
-        ``alpha`` is this job's shrinkage (the shrink provider only)."""
+        ``alpha`` is this job's shrinkage (the shrink provider only).
+
+        With a mesh, every provider but ``bicubic`` runs the ladder through
+        ``dispatcher.run_tiled`` (reference pipeline.py:363-386): each data
+        shard on its device, chunked the same way (the shards of a virtual
+        mesh share one card's memory)."""
         sr = self.sr_module
         # The provider's own nets are built before the staged rule reads
         # them, as in the reference (pipeline.py:337-354), and the serving
@@ -437,29 +484,58 @@ class SuperResolutionPipeline:
                                           square=tiles.shape[1] == tiles.shape[2])
         sr.build_nets(ladder, provider, model, category)
         conditioned = sr.conditions(category)
-        n = int(tiles.shape[0])
         final_block = int(tiles.shape[1]) * int(np.prod(ladder)) if ladder else int(tiles.shape[1])
         multipass = self.config.self_ensemble or provider == "fusion"
         polished = provider == "hybrid" and sr.is_trained("espcn_polish", 1)
         per_px = (_PX_BYTES + _SHRINK_PX_BYTES * (provider == "shrink")
                   + _MULTIPASS_PX_BYTES * multipass + _POLISH_PX_BYTES * polished
                   + _COND_PX_BYTES * conditioned)
-        chunk = max(1, min(n, int(_CHUNK_BYTES // (final_block * final_block * per_px))))
-        outs = []
-        for i in range(0, n, chunk):
-            cur = tiles[i : i + chunk]
-            for si, s in enumerate(ladder):
-                last = si == len(ladder) - 1
-                cur = sr.upscale_tiles(
-                    cur, s, provider=provider,
-                    steps=self.config.ibp_steps if last else 0, model=model,
-                    category=category if last else None,
-                    alpha=1.0 if alpha is None else alpha,
-                )
-            if not ladder:
-                cur = sr._conditioned(cur, category)
-            outs.append(cur)
-        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+        chunk = max(1, int(_CHUNK_BYTES // (final_block * final_block * per_px)))
+
+        def run_ladder(batch: torch.Tensor) -> torch.Tensor:
+            mod = self._sr_for(batch.device)
+            outs = []
+            for i in range(0, int(batch.shape[0]), chunk):
+                cur = batch[i : i + chunk]
+                for si, s in enumerate(ladder):
+                    last = si == len(ladder) - 1
+                    cur = mod.upscale_tiles(
+                        cur, s, provider=provider,
+                        steps=self.config.ibp_steps if last else 0, model=model,
+                        category=category if last else None,
+                        alpha=1.0 if alpha is None else alpha,
+                    )
+                if not ladder:
+                    cur = mod._conditioned(cur, category)
+                outs.append(cur)
+            return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+        if self.dispatcher is not None and provider != "bicubic":
+            return self.dispatcher.run_tiled(run_ladder, tiles)
+        return run_ladder(tiles)
+
+    def _sr_for(self, device: torch.device) -> SuperResolutionModule:
+        """The SR module that serves tiles on ``device``: the pipeline's on
+        its own device; on another, a view of it whose built nets (the
+        zssr-tuned ones too) are copies there, each made once per device
+        and source net (``_net_copies``)."""
+        sr = self.sr_module
+        device = _canonical(device)
+        if device == _canonical(self.device):
+            return sr
+        view = copy.copy(sr)
+        view.device = device
+
+        def copied(key, net):
+            hit = self._net_copies.get((str(device), key))
+            if hit is None or hit[0] is not net:
+                hit = (net, copy.deepcopy(net).to(device))
+                self._net_copies[(str(device), key)] = hit
+            return hit[1]
+
+        view._nets = {k: copied(k, net) for k, net in sr._nets.items()}
+        view.zssr_nets = {s: copied(("zssr", s), net) for s, net in sr.zssr_nets.items()}
+        return view
 
     def _step_trained(self, scale: int, provider: str, model: Optional[str]) -> bool:
         """What serves the step in the reference's staged program is
@@ -489,7 +565,11 @@ class SuperResolutionPipeline:
         polish (pipeline.py:520-539): ``upscale_tiles`` with ``fusion`` (no
         pinned model) or ``quality`` serves the same. Its chunking and
         7e9-byte cap bend around the TPU compiler and are not ported.
-        Otherwise ``provider`` itself."""
+        Otherwise ``provider`` itself, and always under a mesh: the
+        reference's mesh branch returns before the staged rule
+        (pipeline.py:363-386)."""
+        if self.dispatcher is not None:
+            return provider
         if (square and ladder and provider not in ("bicubic", "zssr", "shrink")
                 and (self.config.self_ensemble or (provider == "fusion" and model is None))
                 and all(self._step_trained(s, provider, model) for s in ladder)):
@@ -802,14 +882,25 @@ class SuperResolutionPipeline:
                image: Optional[np.ndarray] = None, net_scale: int = 1):
         """The configured blend (reference pipeline.py:666-717). The
         Laplacian blend returns (lap0, coarse) for the banded finalize
-        unless a post-pass needs the collapsed canvas; every other path
-        returns the canvas."""
+        unless a post-pass needs the collapsed canvas, or under a mesh
+        whose ``space`` axis divides the tile rows a ``ShardedCanvas``
+        when no post-pass is on; every other path returns the canvas."""
         cfg = self.config
         method = cfg.blend_method
         if method == "laplacian":
             defer = not (cfg.enable_seam_repair or cfg.enable_color_correction)
+            profiles = self._weight_profiles(out_layout, image, net_scale)
+            if defer and self.dispatcher is not None and self.dispatcher._space_ok(out_layout):
+                # the canvas stays row-sharded over the mesh's space axis:
+                # a ShardedCanvas for the sharded banded save (reference
+                # pipeline.py:666-689)
+                mesh = self.last_run_info.setdefault("mesh", {})
+                mesh["sharded_blend"] = True
+                return self.dispatcher.laplacian_blend(
+                    up_tiles, profiles, out_layout, levels=cfg.num_pyramid_levels,
+                    collapse_last=False, stats=mesh)
             return laplacian_fusion_tiles(
-                up_tiles, out_layout, self._weight_profiles(out_layout, image, net_scale),
+                up_tiles, out_layout, profiles,
                 levels=cfg.num_pyramid_levels,
                 clip_range=None,  # the banded save clips and quantizes
                 collapse_last=not defer,
@@ -1050,6 +1141,10 @@ class SuperResolutionPipeline:
         net_scale = int(np.prod(ladder)) if ladder else 1
         info = self._run_info(ladder, layout, served, asked, model, alpha, route_info, category)
         info.update(record)
+        if self.dispatcher is not None:
+            mesh = self.dispatcher.mesh
+            info["mesh"] = {"shape": mesh.shape, "devices": mesh.distinct_devices(),
+                            "sharded_blend": False, "halo_bytes": 0, "gather_fallback": None}
         self.last_run_info = info
 
         self._check_cancel("blending")
@@ -1063,6 +1158,7 @@ class SuperResolutionPipeline:
             if cfg.enable_color_correction:
                 canvas = color_correction(canvas, image_dev, method="histogram",
                                           local_filter=False)
+        sharded = isinstance(canvas, ShardedCanvas)
         lap0, coarse = canvas if isinstance(canvas, tuple) else (canvas, None)
         crop = dict(crop_h=min(out_layout.padded_h, layout.image_h * net_scale),
                     crop_w=min(out_layout.padded_w, layout.image_w * net_scale))
@@ -1070,10 +1166,18 @@ class SuperResolutionPipeline:
 
         split: Dict[str, float] = {"fetch": 0.0, "write": 0.0}
 
+        def banded(oh: int, ow: int, nbands: int, to_uint8, **kw):
+            """Output bands: each shard's own (reference pipeline.py:1227-1272)
+            or the single-device finalize's."""
+            if sharded:
+                return sharded_finalize_banded(canvas, oh, ow, bands=nbands, to_uint8=to_uint8,
+                                               stats=info["mesh"], **crop, **kw)
+            return blend_finalize_banded(lap0, coarse, oh, ow, bands=nbands, to_uint8=to_uint8,
+                                         **crop, **kw)
+
         def save_bands():
             t0 = time.time()
-            bands = blend_finalize_banded(lap0, coarse, th, tw, bands=8, to_uint8=quant,
-                                          as_iterator=True, **crop)
+            bands = banded(th, tw, 8, quant, as_iterator=True)
             self._sync()
             split["finalize"] = time.time() - t0
             return bands
@@ -1084,9 +1188,13 @@ class SuperResolutionPipeline:
         if self.quality_module is not None:
             with self._stage("quality_assessment", stage_times):
                 bands = save_bands()  # first, as the reference dispatches them
-                # The input-size proxy never leaves the device.
-                small = blend_finalize_banded(lap0, coarse, h, w, bands=2, to_uint8=False,
-                                              as_device=True, **crop).clamp_(0, 255)
+                # The input-size proxy: on the device, or from the shards
+                # through the host as the reference's sharded branch does.
+                if sharded:
+                    small = torch.from_numpy(banded(h, w, 2, False)).to(self.device)
+                else:
+                    small = banded(h, w, 2, False, as_device=True)
+                small = small.clamp_(0, 255)
                 fr = self.quality_module.evaluate_full_reference(image_dev, small)
                 nr = self.quality_module.evaluate_no_reference(small)
                 quality_report = {**fr, **nr}

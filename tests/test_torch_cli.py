@@ -118,14 +118,26 @@ def test_png_output_and_qa_report(png, tmp_path, capsys):
     assert os.path.isfile(str(tmp_path / "out_qa_report.json"))
 
 
-@pytest.mark.parametrize("args,needle", [
-    (["--mesh", "data=2"], "--mesh"),
-])
-def test_unported_flags_exit_nonzero_with_their_message(png, tmp_path, capsys, args, needle):
+def test_mesh_flag_writes_what_the_run_without_it_writes(png, tmp_path, capsys):
+    """``--mesh data=2,space=2`` on the CPU: the CPU repeated four times,
+    the batch split over data and the blend over space (the 3x2 grid's
+    two tile rows), within 1 LSB of the run without it on all but 1e-3 of
+    samples."""
+    out, plain = str(tmp_path / "mesh.tiff"), str(tmp_path / "plain.tiff")
+    assert main(["process", png, out, *FLAGS, "--mesh", "data=2,space=2"]) == 0
+    assert capsys.readouterr().out.startswith(f"OK {out} (")
+    assert main(["process", png, plain, *FLAGS]) == 0
+    got, ref = read_tiff(out).astype(np.int16), read_tiff(plain).astype(np.int16)
+    diff = np.abs(got - ref)
+    assert got.shape == (192, 256, 3)
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, (diff.max(), (diff > 0).mean())
+
+
+@pytest.mark.parametrize("mesh", ["data=x", "data"])
+def test_malformed_mesh_fails_as_the_reference_parser(png, tmp_path, mesh):
     out = str(tmp_path / "o.tiff")
-    assert main(["process", png, out, *FLAGS, *args]) == 2
-    err = capsys.readouterr().err
-    assert needle in err and "not ported" in err and "ROADMAP" in err
+    with pytest.raises(ValueError):
+        main(["process", png, out, *FLAGS, "--mesh", mesh])
     assert not os.path.exists(out)
 
 

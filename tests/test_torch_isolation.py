@@ -41,8 +41,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     # every module: the QA and routing ones, the CLI and __main__, seam
     # repair, colour correction, content-aware tiling, the trainer, the
     # corpus and the photo harvest, commercial QA, the blending module and
-    # the examples, the generator, the bench and the FLOP and trace utilities too
-    assert int(count) >= 58
+    # the examples, the generator, the bench and the FLOP and trace
+    # utilities, and the device mesh (parallel/ and its four modules) too
+    assert int(count) >= 63
     assert bad == "", f"imported: {bad}"
 
 
