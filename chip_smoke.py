@@ -53,19 +53,22 @@ in order, each printing one JSON line with its seconds:
    seam detection and repair of a scene with medium and high seams, the
    same seams and canvases within 1e-3;
 10. providers: ``process()`` at full width (the 720x1280 input to the
-   100MP preset, QA, routing and selection off, weights seeded) for six
+   100MP preset, QA, routing and selection off, weights seeded) for eight
    serving cases: ``fusion`` with the packaged x3 members (a FUSION.json
    the smoke writes), ``quality`` with the dihedral self-ensemble,
    ``quality`` with ``prompt="food"`` and a seeded conditioned polish,
    ``hybrid`` with an untrained ``edsr_xl`` and a seeded ``espcn_polish``,
-   ``fast`` with a seeded ``espcn``, and ``rcan`` as the quality net. Each
+   ``fast`` with a seeded ``espcn``, ``rcan`` as the quality net, and the
+   reference's remote names ``seedream`` (the quality path's nets, within
+   1 LSB of its TIFF) and ``veimagex`` (the fast case's, within 1 LSB of
+   its TIFF), each reporting itself as the provider that served. Each
    a warm-up with every K1/K2 launch held against the plain version, then
    a timed run with the counts reset: MP/s, stage times, peak memory, and
    the nets and passes of each step from ``last_run_info``; fusion must
    show its members with 8 passes for each "+" member, the ensemble 8
    passes a step, and the prompt's pixels must differ from the quality
    path's;
-11. provider_reference: the six cases on a small input (48x64 -> 192x144,
+11. provider_reference: the eight cases on a small input (48x64 -> 192x144,
    one x3 step), card against CPU in float32: TIFFs within 1 LSB and the
    same nets and passes; and fusion in bfloat16, held to a PSNR floor;
 12. jobs: the job layer at full width on the quality path's flags:
@@ -167,7 +170,35 @@ in order, each printing one JSON line with its seconds:
 22. mesh_reference: the 2x2 mesh at small size (80x96 -> 864x720), card
    (virtual mesh) against CPU (the CPU repeated) in float32 with TF32 off:
    the sharded blend on both, TIFFs within 1 LSB;
-23. kernel_shapes: K1 and K2 timed at every distinct (input, output)
+23. webui: the web UI's headless path. The session at its defaults and
+   ``extract_image_info`` of the input array, then the Monitor page's
+   worker (``monitor_page.start_worker``) on the Configure page's state:
+   the bench configuration at a block of 1024, no weights (untrained nets,
+   IBP). A warm-up with every K1/K2 launch held against the plain
+   version, then a run with the counts reset: ``done``, a 12245x6887 TIFF,
+   the bench path's report keys, the pipeline's records in the log
+   buffer, peak memory under 40 GB, and the TIFF within 1 LSB of a direct
+   ``process()`` with the same ``PipelineConfig``; MP/s, tiles, ladder,
+   the SR chunking. Then the Cancel button mid-SR (``failed: ...
+   cancelled``, at most 4 MiB left allocated); ``build_export`` as TIFF
+   8-bit sRGB, TIFF 16-bit AdobeRGB and PNG sRGB, each decoded within 1
+   LSB (after the same ``convert_profile``); a JPEG export without PIL
+   raises; ``python3 -m srs_tpu_torch webui`` without Streamlit exits
+   non-zero;
+24. webui_reference: the worker's job at small size (60x80 -> 160x120,
+   tile 64, QA on), card against CPU with TF32 off: TIFFs within 1 LSB;
+25. sharded_train: ``parallel/train.sharded_train_step`` on ``edsr_xl`` x3
+   at full width, batch 32, patch 48, on a data=2, space=2, model=2
+   virtual mesh of ``cuda:0``, three steps against three unsharded
+   ``train_step`` steps from the same weights, float32 with TF32 off:
+   step 1's gradients within 1e-3 of their largest entry, the losses
+   within relative 1e-3; steps/s of both and the halo bytes;
+26. sharded_train_reference: two sharded steps of ``edsr_m`` x2 on the
+   same mesh shape, card against CPU: losses within relative 1e-3;
+27. dryrun: ``parallel/dryrun.dryrun_multichip(8)`` on a virtual mesh of
+   ``cuda:0``, once with every K1/K2 launch held against the plain
+   version, then with the counts reset;
+28. kernel_shapes: K1 and K2 timed at every distinct (input, output)
    shape that the warm-up runs launched, each with its launches per
    path, bound and share of the bound.
 
@@ -180,7 +211,7 @@ share, device launches a step and time by kernel and op; and the
 generator's training step, 50-step sample and refinement chunk at the
 packaged width, likewise.
 Then it prints a ``done`` line with the total seconds, the kernels' JSON
-line (each kernel's entry with its ``shapes`` of phase 23), the ``nvidia-smi``
+line (each kernel's entry with its ``shapes`` of phase 28), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Without a CUDA card, or without the port
 beside it, it exits with code 2 and prints no result. Outputs go to a
@@ -1148,8 +1179,10 @@ def blend_reference(torch, tmp: str) -> dict:
 
 
 def provider_cases(ledger: str) -> dict:
-    """The six serving cases: name -> (config flags, weights, prompt). Every
-    fusion member is seeded at x3, edsr_xl at x2/x3/x4 (the ladder's nets)."""
+    """The eight serving cases: name -> (config flags, weights, prompt).
+    Every fusion member is seeded at x3, edsr_xl at x2/x3/x4 (the ladder's
+    nets); the reference's remote names ``seedream`` and ``veimagex`` serve
+    the quality path's and the fast case's nets."""
     from srs_tpu_torch.models.registry import seeded_params
 
     xl = xl_weights()
@@ -1166,6 +1199,8 @@ def provider_cases(ledger: str) -> dict:
         "rcan": (dict(quality_model="rcan"),
                  {("rcan", s): seeded_params("rcan", s, seed=50 + s) for s in (2, 3, 4)},
                  None),
+        "seedream": (dict(provider="seedream"), xl, None),
+        "veimagex": (dict(provider="veimagex"), fast_weights(), None),
     }
 
 
@@ -1175,7 +1210,8 @@ def expected_members(name: str) -> list:
              for m in FUSION_X3["members"] if m != "bicubic"]
     return {"fusion": fused, "self_ensemble": [["edsr_xl", 8]], "prompt": [["edsr_xl", 1]],
             "hybrid": [["edsr_xl", 1], ["espcn_polish", 1]], "fast": [["espcn", 1]],
-            "rcan": [["rcan", 1]]}[name]
+            "rcan": [["rcan", 1]], "seedream": [["edsr_xl", 1]],
+            "veimagex": [["espcn", 1]]}[name]
 
 
 def write_fusion_ledger(tmp: str) -> str:
@@ -1187,8 +1223,10 @@ def write_fusion_ledger(tmp: str) -> str:
 
 
 def providers(torch, K, tmp: str, image: np.ndarray, quality_tiff: str):
-    """The six serving cases at full width (module docstring, phase 10).
-    Returns (numbers, pipeline) per case."""
+    """The eight serving cases at full width (module docstring, phase 10).
+    ``seedream`` must land within 1 LSB of the quality path's TIFF (the
+    same nets) and ``veimagex`` of the fast case's. Returns (numbers,
+    pipeline) per case."""
     from srs_tpu_torch.io.native import read_tiff
 
     out, pipes = {}, {}
@@ -1201,7 +1239,8 @@ def providers(torch, K, tmp: str, image: np.ndarray, quality_tiff: str):
         if info["step_members"] != [want, want]:
             fail(f"providers: {name}: step members {info['step_members']}, want {want} "
                  "at each of the two steps")
-        served = {"fusion": "fusion", "hybrid": "hybrid", "fast": "fast"}.get(name, "quality")
+        served = {"fusion": "fusion", "hybrid": "hybrid", "fast": "fast", "seedream": "seedream",
+                  "veimagex": "veimagex"}.get(name, "quality")
         if info["provider"] != served:
             fail(f"providers: {name}: served {info['provider']}, want {served}")
         if name == "prompt":
@@ -1214,11 +1253,21 @@ def providers(torch, K, tmp: str, image: np.ndarray, quality_tiff: str):
                                               "frac_differing": float((diff > 0).mean())}
             if diff.max() == 0:
                 fail("providers: prompt: the conditioned output equals the quality path's")
-        os.remove(path)
+        # the remote names serve the same nets as quality and fast
+        alias_of = {"seedream": quality_tiff,
+                    "veimagex": os.path.join(tmp, "out_provider_fast.tiff")}.get(name)
+        if alias_of is not None:
+            worst, share = lsb_apart(path, alias_of)
+            nums["vs_served_tier"] = {"max_lsb": worst, "frac_differing": share}
+            if worst > 1:
+                fail(f"providers: {name} is {worst} LSB from its tier's TIFF")
+        if name != "fast":  # veimagex is held against it
+            os.remove(path)
         nums.update(provider=info["provider"], models=info["models"],
                     step_members=info["step_members"], self_ensemble=info["self_ensemble"],
                     conditioned=info["conditioned"])
         out[name], pipes[name] = nums, pipe
+    os.remove(os.path.join(tmp, "out_provider_fast.tiff"))
     return out, pipes
 
 
@@ -2839,6 +2888,454 @@ def mesh_reference(torch, tmp: str) -> dict:
             "mesh": {d: {k: v for k, v in m.items() if k != "shape"} for d, m in infos.items()}}
 
 
+# -- the web UI, the sharded training step and the dry run (phases 23-27) ------
+
+# The web UI's worker on the session's defaults: the bench configuration
+# (routing, selection and QA on; 100MP; provider quality) at a block of
+# min(tile 1024, 1024), with no weights, so the nets are untrained and
+# IBP runs. Its peak must leave room for a second job (PERF.md §2).
+WEBUI_PEAK_GB = 40.0
+# The exports the smoke builds from the worker's TIFF: (format, colour
+# space, bit depth).
+WEBUI_EXPORTS = (("tiff", "sRGB", 8), ("tiff", "AdobeRGB", 16), ("png", "sRGB", 8))
+
+
+@contextlib.contextmanager
+def recorded_upscales(calls: list):
+    """While open, every ``SuperResolutionModule.upscale_tiles`` call appends
+    its (tiles, block, scale) to ``calls``: the SR chunking as it ran."""
+    from srs_tpu_torch.models.sr_module import SuperResolutionModule
+
+    orig = SuperResolutionModule.upscale_tiles
+
+    def upscale(self, tiles, scale, *args, **kwargs):
+        calls.append([int(tiles.shape[0]), int(tiles.shape[1]), int(scale)])
+        return orig(self, tiles, scale, *args, **kwargs)
+
+    SuperResolutionModule.upscale_tiles = upscale
+    try:
+        yield calls
+    finally:
+        SuperResolutionModule.upscale_tiles = orig
+
+
+def webui_worker(monitor, image, cfg_state) -> float:
+    """``start_worker`` and join the thread; returns its seconds."""
+    t0 = time.time()
+    monitor.start_worker(image, cfg_state)
+    monitor._worker.join()
+    return time.time() - t0
+
+
+def export_check(tiff: np.ndarray, data: bytes, name: str, fmt: str, space: str,
+                 bits: int, tmp: str) -> dict:
+    """Decode one export and hold it within 1 LSB of the worker's TIFF
+    after the same ``convert_profile``, at the export's bit depth."""
+    from srs_tpu_torch.io.image import decode_png
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.ops.colorspace import convert_profile
+
+    t0 = time.time()
+    if fmt == "tiff":
+        path = os.path.join(tmp, "export_" + name)
+        with open(path, "wb") as f:
+            f.write(data)
+        got = read_tiff(path)
+        os.remove(path)
+    else:
+        got = decode_png(data)
+    decode_s = time.time() - t0
+    want = tiff if space == "sRGB" else convert_profile(tiff, space)
+    if bits == 16:
+        want = (np.clip(want.astype(np.float64), 0, 255) / 255.0 * 65535.0 + 0.5).astype(np.uint16)
+    else:
+        want = np.clip(want, 0, 255).astype(np.uint8)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"webui: export {name}: {got.shape} {got.dtype}, want {want.shape} {want.dtype}")
+    lsb = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+    if lsb > 1:
+        fail(f"webui: export {name} is {lsb} LSB from the worker's TIFF")
+    return {"decode_s": decode_s, "max_lsb": lsb, "bytes": len(data)}
+
+
+def webui_phase(torch, K, tmp: str, image: np.ndarray) -> dict:
+    """Phase 23: the web UI's headless path on the card. The session at its
+    defaults, ``extract_image_info`` of the input array, then
+    ``monitor_page.start_worker`` (the Monitor page's worker thread) with
+    the Configure page's state: a warm-up with every K1/K2 launch held
+    against the plain version, then a run with the counts set to 0 just
+    before and read just after. The worker's state must end ``done`` with
+    a 12245x6887 TIFF and the bench path's report keys, its log buffer
+    must hold the pipeline's records, and the TIFF must lie within 1 LSB
+    of a direct ``process()`` with the same ``PipelineConfig``. Then a
+    worker run that the Cancel button (``monitor_page.cancel``) stops
+    mid-SR ends ``failed: ...cancelled`` with at most 4 MiB more memory
+    allocated; ``result_page.build_export`` writes TIFF 8-bit sRGB, TIFF
+    16-bit AdobeRGB and PNG sRGB, each within 1 LSB; a JPEG export without
+    PIL raises; and ``python3 -m srs_tpu_torch webui`` without Streamlit
+    exits non-zero."""
+    import dataclasses
+    import gc
+
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.pipeline import SuperResolutionPipeline
+    from srs_tpu_torch.webui import session
+    from srs_tpu_torch.webui.pages import monitor_page as monitor
+    from srs_tpu_torch.webui.pages import result_page, upload_page
+
+    session._fallback_state.clear()
+    session.initialize_session_state()
+    info = upload_page.extract_image_info(image, "input.png", image.nbytes)
+    session.set_state("image_info", info)
+    session.set_state("uploaded_image", image)
+    cfg_state = dict(session.get_config_summary())
+    cfg_state["self_ensemble"] = session.get_state("self_ensemble")
+    path = os.path.join(tmp, "out_webui.tiff")
+    cfg_state["output_path"] = path
+    if cfg_state["model_version"] != "quality" or cfg_state["tile_size"] != 1024:
+        fail(f"webui: session defaults {cfg_state}")
+
+    K.reset_launches()
+    with held_against_plain(K) as records:
+        warm_s = webui_worker(monitor, image, cfg_state)
+    if session.get_state("current_stage") != "done":
+        fail(f"webui: warm-up worker ended {session.get_state('current_stage')!r}")
+    held = check_held(K, "webui", records)
+    os.remove(path)
+
+    monitor._log_buffer.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls: list = []
+    K.reset_launches()
+    with recorded_upscales(calls):
+        elapsed = webui_worker(monitor, image, cfg_state)
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    stage = session.get_state("current_stage")
+    pipe = session.get_state("_pipeline")
+    report = session.get_state("qa_report") or {}
+    if stage != "done" or session.get_state("result_path") != path or \
+            session.get_state("processing") is not False:
+        fail(f"webui: worker ended {stage!r}, result {session.get_state('result_path')}")
+    for kname, n in launches.items():
+        if n <= 0:
+            fail(f"webui never launched kernel {kname}")
+    missing = [k for k in REPORT_KEYS if not np.isfinite(report.get(k, float("nan")))]
+    if missing:
+        fail(f"webui: qa_report lacks the reference's keys {missing}")
+    logged = [m for _, _, m in monitor._log_buffer]
+    if not any(m.startswith("Stage 1:") for m in logged):
+        fail(f"webui: the log buffer holds no pipeline records: {logged[:5]}")
+    if peak > WEBUI_PEAK_GB:
+        fail(f"webui: peak {peak:.2f} GB leaves no room for a second job")
+    run = pipe.last_run_info
+    tiff = read_tiff(path)
+    w, h = MAIN_OUT
+    if tiff.shape != (h, w, 3) or tiff.dtype != np.uint8:
+        fail(f"webui: output {tiff.shape} {tiff.dtype} != ({h}, {w}, 3) uint8")
+    cfg = pipe.config
+    if (cfg.block_size, cfg.provider, cfg.target_resolution, cfg.enable_qa, cfg.auto_route,
+            cfg.per_scale_selection) != (1024, "quality", "100MP", True, True, True):
+        fail(f"webui: the worker ran {cfg}")
+
+    # the same PipelineConfig through process() directly
+    direct_path = os.path.join(tmp, "out_webui_direct.tiff")
+    direct = SuperResolutionPipeline(dataclasses.replace(cfg))
+    t0 = time.time()
+    res = direct.process(image.astype(np.float32), direct_path)
+    direct_s = time.time() - t0
+    if not res.success:
+        fail(f"webui: direct process() failed: {res.error_message}")
+    direct_lsb, direct_share = lsb_apart(path, direct_path)
+    if direct_lsb > 1:
+        fail(f"webui: the worker's TIFF is {direct_lsb} LSB from process()'s")
+    os.remove(direct_path)
+    del direct, res, pipe  # the session keeps the worker's pipeline
+    gc.collect()
+
+    # the Cancel button, mid-SR
+    cancel_path = os.path.join(tmp, "out_webui_cancel.tiff")
+    orig = SuperResolutionPipeline._upscale_batch
+
+    def cancel_during_sr(self, *args, **kwargs):
+        monitor.cancel()
+        return orig(self, *args, **kwargs)
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    SuperResolutionPipeline._upscale_batch = cancel_during_sr
+    K.reset_launches()
+    try:
+        cancel_s = webui_worker(monitor, image,
+                                {**cfg_state, "output_path": cancel_path})
+    finally:
+        SuperResolutionPipeline._upscale_batch = orig
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    cancelled = session.get_state("current_stage")
+    if not cancelled.startswith("failed: ") or "cancelled" not in cancelled \
+            or os.path.exists(cancel_path) or after - before > LEAK_TOL_BYTES:
+        fail(f"webui: cancel ended {cancelled!r}, output {os.path.exists(cancel_path)}, "
+             f"{after - before} bytes left allocated")
+    cancel_launches = dict(K.LAUNCHES)
+
+    # the Result page's exports of the worker's TIFF
+    exports = {}
+    base = tiff.astype(np.float32)
+    for fmt, space, bits in WEBUI_EXPORTS:
+        t0 = time.time()
+        data, name = result_page.build_export(path, fmt, space, bits)
+        seconds = time.time() - t0
+        exports[f"{fmt}_{space}_{bits}"] = {
+            "name": name, "seconds": seconds,
+            **export_check(base, data, name, fmt, space, bits, tmp)}
+        del data
+    saved = sys.modules.get("PIL")
+    sys.modules["PIL"] = None  # the card's machine has no PIL; hold that here too
+    try:
+        result_page.build_export(path, "jpeg", "sRGB", 8)
+        fail("webui: a JPEG export without PIL did not raise")
+    except RuntimeError as e:
+        jpeg_error = str(e)
+    finally:
+        if saved is None:
+            sys.modules.pop("PIL", None)
+        else:
+            sys.modules["PIL"] = saved
+
+    proc = subprocess.run([sys.executable, "-m", "srs_tpu_torch", "webui"],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode == 0 or "Streamlit" not in proc.stderr:
+        fail(f"webui: the subcommand without Streamlit exited {proc.returncode}: "
+             f"{proc.stderr[-500:]}")
+    os.remove(path)
+    session.set_state("_pipeline", None)
+    del tiff, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    chunks = sorted({c[0] for c in calls})
+    return {
+        "image_info": info, "config": {"block_size": cfg.block_size, "provider": cfg.provider,
+                                       "target_resolution": cfg.target_resolution,
+                                       "ibp_steps": cfg.ibp_steps},
+        "warmup_s": warm_s, "elapsed_s": elapsed, "output_mp": w * h / 1e6,
+        "mp_per_s": w * h / 1e6 / elapsed, "peak_mem_gb": peak,
+        "num_tiles": run["num_tiles"], "block": run["block"], "ladder": run["ladder"],
+        "models": run["models"], "provider": run["provider"],
+        "sr_chunk_tiles": chunks, "upscale_calls": calls,
+        "routing": run.get("routing"), "save_breakdown": run.get("save_breakdown"),
+        "sr_attempts": run.get("sr_attempts"),
+        "launches": launches, "held_against_plain": held,
+        "launches_by_shape": launches_by_shape(held),
+        "log_records": len(logged), "first_log": logged[:2],
+        "direct_process_s": direct_s, "direct_max_lsb": direct_lsb,
+        "direct_share_differing": direct_share,
+        "cancel": {"stage": cancelled, "seconds": cancel_s, "leak_bytes": after - before,
+                   "launches": cancel_launches},
+        "exports": exports, "jpeg_without_pil": jpeg_error,
+        "webui_subcommand": {"exit_code": proc.returncode,
+                             "error": proc.stderr.strip().splitlines()[-1:]},
+        "quality_score": report.get("overall_score"),
+    }
+
+
+def webui_reference(torch, tmp: str) -> dict:
+    """Phase 24: the worker's job at small size (60x80 -> 160x120, tile 64,
+    provider quality, untrained nets with IBP, QA on), on the card and on
+    the CPU (``cfg_state["device"]``), float32 convolutions with TF32 off:
+    both ``done``, TIFFs within 1 LSB."""
+    from srs_tpu_torch.webui import session
+    from srs_tpu_torch.webui.pages import monitor_page as monitor
+
+    torch.backends.cudnn.allow_tf32 = False
+    image = synthetic_image(60, 80, seed=12)
+    cfg = {"tile_size": 64, "overlap_ratio": 0.2, "target_resolution": "160x120",
+           "model_version": "quality", "fusion_algorithm": "laplacian"}
+    paths, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        paths[device] = os.path.join(tmp, f"webui_ref_{device}.tiff")
+        t0 = time.time()
+        monitor._run_pipeline(image, {**cfg, "device": device, "output_path": paths[device]})
+        seconds[device] = time.time() - t0
+        if session.get_state("current_stage") != "done":
+            fail(f"webui_reference on {device}: {session.get_state('current_stage')!r}")
+    torch.backends.cudnn.allow_tf32 = True
+    session.set_state("_pipeline", None)
+    worst, share = lsb_apart(paths["cuda"], paths["cpu"])
+    if worst > 1:
+        fail(f"webui_reference: card and CPU {worst} LSB apart")
+    for p in paths.values():
+        os.remove(p)
+    return {"shape": [120, 160, 3], "max_lsb": worst, "frac_differing": share,
+            "run_s": seconds}
+
+
+# The sharded training step at the trainer's width: edsr_xl x3 (16 blocks,
+# 128 features), batch 32 of 48-px patches, on a data=2, space=2, model=2
+# virtual mesh of cuda:0, against the unsharded step from the same weights.
+SHARDED_MESH = {"data": 2, "space": 2, "model": 2}
+SHARDED_STEPS = 3
+SHARDED_GRAD_ATOL = 1e-3  # step 1's gradients, of their largest entry
+
+
+def sharded_batches(torch, steps: int, batch: int, patch: int, scale: int, device: str):
+    """``steps`` (lr, hr) batches cut from one seeded synthetic photo."""
+    from srs_tpu_torch.models.train import sample_patches
+
+    rng = np.random.default_rng(14)
+    img = torch.from_numpy(synthetic_image(480, 640, seed=15)).to(device)
+    return [sample_patches(rng, img, batch, patch, scale) for _ in range(steps)]
+
+
+def sharded_steps(torch, net, opt, batches, mesh=None, stats=None):
+    """Run the steps (sharded on ``mesh``, else ``train_step``): per step
+    (loss, grad norm, seconds), and step 1's gradients."""
+    from srs_tpu_torch.models.train import train_step
+    from srs_tpu_torch.parallel.train import sharded_train_step
+
+    out, grads = [], None
+    for lr_b, hr_b in batches:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if mesh is None:
+            m = train_step(net, opt, lr_b, hr_b)
+        else:
+            m = sharded_train_step(net, opt, lr_b, hr_b, mesh, stats=stats)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        out.append((loss, norm, time.time() - t0))
+        if grads is None:
+            grads = {k: p.grad.detach().clone() for k, p in net.named_parameters()}
+    return out, grads
+
+
+def sharded_train_phase(torch) -> dict:
+    """Phase 25: three steps of ``parallel/train.sharded_train_step`` on
+    ``edsr_xl`` x3 at full width, batch 32, patch 48, on a data=2,
+    space=2, model=2 virtual mesh of ``cuda:0``, against three unsharded
+    ``models/train.train_step`` steps from the same weights and batches,
+    float32 with TF32 off: step 1's gradients within 1e-3 of their largest
+    entry, every loss within relative 1e-3; steps/s of both and the halo
+    bytes."""
+    import copy
+
+    from srs_tpu_torch.models.registry import build_model, seeded_params
+    from srs_tpu_torch.models.train import init_train_state
+    from srs_tpu_torch.parallel.mesh import make_mesh
+    from srs_tpu_torch.parallel.train import receptive_radius, shard_params
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base, _ = build_model("edsr_xl", 3, seeded_params("edsr_xl", 3, seed=13), dtype="float32",
+                          device="cuda", master_weights=True)
+    batches = sharded_batches(torch, SHARDED_STEPS, TRAIN["batch"], TRAIN["patch"], 3, "cuda")
+    ref, ref_opt = init_train_state(copy.deepcopy(base))
+    got, got_opt = init_train_state(copy.deepcopy(base))
+    del base
+    n = int(np.prod(list(SHARDED_MESH.values())))
+    mesh = make_mesh(SHARDED_MESH, [torch.device("cuda", 0)] * n)
+    split = shard_params(got, mesh)
+    radius = receptive_radius(got)
+    torch.cuda.reset_peak_memory_stats()
+    want, want_grads = sharded_steps(torch, ref, ref_opt, batches)
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    stats: dict = {}
+    have, have_grads = sharded_steps(torch, got, got_opt, batches, mesh, stats)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    gmax = max(float(g.abs().max()) for g in want_grads.values())
+    gerr = max(float((have_grads[k] - g).abs().max()) for k, g in want_grads.items())
+    rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(have, want))
+    if gerr > SHARDED_GRAD_ATOL * gmax or rel > TRAIN_LOSS_RTOL \
+            or not all(np.isfinite(a[:2]).all() for a in have):
+        fail(f"sharded_train: step-1 gradients {gerr} apart (largest {gmax}), losses "
+             f"{[a[0] for a in have]} against {[b[0] for b in want]}")
+    del ref, got, want_grads, have_grads
+    torch.cuda.empty_cache()
+    return {
+        "config": {"model": "edsr_xl", "scale": 3, "batch": TRAIN["batch"],
+                   "patch": TRAIN["patch"], "mesh": SHARDED_MESH, "steps": SHARDED_STEPS},
+        "receptive_radius": radius,
+        "split_convs": len(split), "halo_bytes": stats.get("halo_bytes", 0),
+        "sharded": {"loss_grad_norm_s": have,
+                    "steps_per_s": len(have) / sum(a[2] for a in have),
+                    "warm_steps_per_s": (len(have) - 1) / sum(a[2] for a in have[1:]),
+                    "peak_mem_gb": peak},
+        "unsharded": {"loss_grad_norm_s": want,
+                      "steps_per_s": len(want) / sum(b[2] for b in want),
+                      "warm_steps_per_s": (len(want) - 1) / sum(b[2] for b in want[1:]),
+                      "peak_mem_gb": ref_peak},
+        "step1_grad_err": gerr, "step1_grad_max": gmax, "max_rel_loss_diff": rel,
+        "tolerance": {"grad_atol_of_max": SHARDED_GRAD_ATOL, "loss_rtol": TRAIN_LOSS_RTOL},
+    }
+
+
+def sharded_train_reference(torch) -> dict:
+    """Phase 26: two sharded steps of a seeded ``edsr_m`` x2 (batch 4 of
+    16-px patches) on a data=2, space=2, model=2 virtual mesh of the card
+    and of the CPU, float32 with TF32 off: losses within relative 1e-3."""
+    from srs_tpu_torch.models.registry import build_model, seeded_params
+    from srs_tpu_torch.models.train import init_train_state
+    from srs_tpu_torch.parallel.mesh import make_mesh
+    from srs_tpu_torch.parallel.train import shard_params, sharded_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(16)
+    batches = []
+    for _ in range(2):
+        hr = rng.uniform(0, 255, (4, 32, 32, 3)).astype(np.float32)
+        batches.append((hr.reshape(4, 16, 2, 16, 2, 3).mean(axis=(2, 4)), hr))
+    losses = {}
+    for device in ("cuda", "cpu"):
+        net, _ = build_model("edsr_m", 2, seeded_params("edsr_m", 2, seed=6), dtype="float32",
+                             device=device, master_weights=True)
+        net, opt = init_train_state(net, 1e-3)
+        dev = torch.device("cuda", 0) if device == "cuda" else torch.device("cpu")
+        mesh = make_mesh(SHARDED_MESH, [dev] * int(np.prod(list(SHARDED_MESH.values()))))
+        shard_params(net, mesh)
+        rec = []
+        for lr_b, hr_b in batches:
+            m = sharded_train_step(net, opt, torch.from_numpy(lr_b).to(device),
+                                   torch.from_numpy(hr_b).to(device), mesh)
+            rec.append((float(m["loss"]), float(m["grad_norm"])))
+        losses[device] = rec
+    torch.backends.cudnn.allow_tf32 = True
+    rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(losses["cuda"], losses["cpu"]))
+    if rel > TRAIN_LOSS_RTOL:
+        fail(f"sharded_train_reference: losses card {losses['cuda']} CPU {losses['cpu']}")
+    return {"loss_grad_norm": losses, "max_rel_loss_diff": rel, "loss_rtol": TRAIN_LOSS_RTOL}
+
+
+def dryrun_phase(torch, K) -> dict:
+    """Phase 27: ``parallel/dryrun.dryrun_multichip(8)`` on a virtual mesh
+    of ``cuda:0`` (data=2, space=2, model=2 for the step; space=8 for the
+    merge, blend and finalize): once with every K1/K2 launch held against
+    the plain version, then once with the counts set to 0 just before and
+    read just after."""
+    from srs_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    K.reset_launches()
+    with held_against_plain(K) as records:
+        dryrun_multichip(8)
+    torch.cuda.synchronize()
+    held = check_held(K, "dryrun", records)
+    K.reset_launches()
+    t0 = time.time()
+    out = dryrun_multichip(8)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    for kname, n in launches.items():
+        if n <= 0:
+            fail(f"dryrun never launched kernel {kname}")
+    return {**out, "timed_s": seconds, "launches": launches, "held_against_plain": held,
+            "launches_by_shape": launches_by_shape(held)}
+
+
 def self_dev_ms(e) -> float:
     """An op's own device milliseconds in ``key_averages()``, under either
     name the profiler has given it."""
@@ -3171,6 +3668,23 @@ def main() -> int:
         emit("mesh_reference", t0, **mesh_reference(torch, tmp))
 
         t0 = time.time()
+        webui = webui_phase(torch, K, tmp, image)
+        emit("webui", t0, **webui)
+
+        t0 = time.time()
+        emit("webui_reference", t0, **webui_reference(torch, tmp))
+
+        t0 = time.time()
+        emit("sharded_train", t0, **sharded_train_phase(torch))
+
+        t0 = time.time()
+        emit("sharded_train_reference", t0, **sharded_train_reference(torch))
+
+        t0 = time.time()
+        dry = dryrun_phase(torch, K)
+        emit("dryrun", t0, **dry)
+
+        t0 = time.time()
         held = {"main_path": main["held_against_plain"], "zssr": zssr["held_against_plain"],
                 "bench_path": bench["held_against_plain"],
                 "cli_path": cli["held_against_plain"],
@@ -3178,7 +3692,8 @@ def main() -> int:
                 **{f"jobs_{k}": job_nums[k]["held_against_plain"] for k in JOB_CASES},
                 "library": lib["held_against_plain"],
                 "subcommands": sub["held_against_plain"],
-                "mesh": mesh["held_against_plain"]}
+                "mesh": mesh["held_against_plain"],
+                "webui": webui["held_against_plain"], "dryrun": dry["held_against_plain"]}
         shapes = time_kernel_shapes(torch, K, held)
         emit("kernel_shapes", t0, **shapes)
 
@@ -3215,7 +3730,9 @@ def main() -> int:
                                  **{f"jobs_{k}": job_nums[k]["launches"][name] for k in JOB_CASES},
                                  "library": lib["launches"][name],
                                  "subcommands": sub["launches"][name],
-                                 "mesh": mesh["launches"][name]},
+                                 "mesh": mesh["launches"][name],
+                                 "webui": webui["launches"][name],
+                                 "dryrun": dry["launches"][name]},
             "max_abs_err": max(d["max_abs_err"],
                                *(h[name]["max_abs_err"] for h in held.values())),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],

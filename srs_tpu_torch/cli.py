@@ -8,6 +8,7 @@
     python -m srs_tpu_torch bench
     python -m srs_tpu_torch warmup [--source 1280x720 --target 100MP ...]
     python -m srs_tpu_torch info [--config]
+    python -m srs_tpu_torch webui [--port 8501]
 
 They take the reference's flags. ``--device`` (``cuda`` by default,
 ``cpu`` for the plain PyTorch versions) is the port's own, and so is
@@ -26,8 +27,8 @@ job into DIR (``utils/profiling.device_trace``). ``bench`` is
 runs ``process`` on a device mesh (``parallel/``): over the CUDA devices
 torch sees, where a mesh that needs more of them raises ``ValueError`` as
 in the reference, or with ``--device cpu`` over the CPU repeated to the
-mesh's size. Not ported: the ``webui`` subcommand (ROADMAP Queue 1, item
-7).
+mesh's size. ``webui`` starts the Streamlit app (``webui/app.py``) and
+exits non-zero with a message where Streamlit is not installed.
 """
 
 from __future__ import annotations
@@ -234,6 +235,21 @@ def _add_device(parser: argparse.ArgumentParser) -> None:
                         help="cuda (default; needs a card) or cpu (the plain PyTorch versions)")
 
 
+def _cmd_webui(args: argparse.Namespace) -> int:
+    """``streamlit run webui/app.py`` (reference cli.py:74-80)."""
+    import importlib.util
+    import subprocess
+
+    if importlib.util.find_spec("streamlit") is None:
+        print("webui: Streamlit is not installed; the web UI needs it "
+              "(pip install streamlit)", file=sys.stderr)
+        return 1
+    from .webui import app
+
+    return subprocess.call([sys.executable, "-m", "streamlit", "run", app.__file__,
+                            "--server.port", str(args.port)])
+
+
 def build_parser() -> argparse.ArgumentParser:
     from .models.train import DEFAULT_CHECKPOINT_DIR
 
@@ -323,6 +339,10 @@ def build_parser() -> argparse.ArgumentParser:
                      help="directory of trained nets, as for process")
     _add_device(pwu)
     pwu.set_defaults(fn=_cmd_warmup)
+
+    pw = sub.add_parser("webui", help="launch the Streamlit UI (needs Streamlit)")
+    pw.add_argument("--port", type=int, default=8501)
+    pw.set_defaults(fn=_cmd_webui)
 
     pg = sub.add_parser("generate", help="text-to-image (the learned generator)")
     pg.add_argument("prompt")

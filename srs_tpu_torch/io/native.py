@@ -1,10 +1,14 @@
-"""The streamed TIFF writer and the content hash, bound with ctypes (port
-of ``srs_tpu/io/native.py:137-199``).
+"""The TIFF writers and the content hash, bound with ctypes (port of
+``srs_tpu/io/native.py``).
 
 The library is compiled from the repository's ``native/tiffio.cpp`` with
 ``g++ ... -lz`` into the port's build directory (``utils/build.py``); the
 port never writes into ``native/``. Strips deflate on a C++ thread pool
-while later bands are still being computed.
+while later bands are still being computed. :func:`write_tiff` writes a
+whole image in one call through the same streamed writer.
+:func:`load` is :func:`load_library`, and :func:`available` only asks
+whether the library builds and loads: no code of the port chooses a path
+by it.
 
 :func:`read_tiff` reads back what the writer wrote (classic TIFF, striped,
 uncompressed or deflate, 8/16-bit), with numpy and zlib only.
@@ -25,7 +29,8 @@ import numpy as np
 
 from ..utils.build import PACKAGE_DIR, build_shared
 
-__all__ = ["TiffStreamWriter", "read_tiff", "content_hash", "load_library"]
+__all__ = ["TiffStreamWriter", "read_tiff", "write_tiff", "content_hash", "load_library",
+           "load", "available"]
 
 SOURCE = os.path.join(os.path.dirname(PACKAGE_DIR), "native", "tiffio.cpp")
 _lib: Optional[ctypes.CDLL] = None
@@ -55,6 +60,43 @@ def load_library() -> ctypes.CDLL:
             lib.srs_hash64.argtypes = [ctypes.c_void_p, i64]
             _lib = lib
     return _lib
+
+
+load = load_library  # the reference's name (io/native.py:67)
+
+
+def available() -> bool:
+    """Whether the TIFF library builds and loads here (reference
+    io/native.py:97). A query only: the port's writers call
+    :func:`load_library`, which raises when it cannot."""
+    try:
+        load_library()
+        return True
+    except (OSError, RuntimeError):
+        return False
+
+
+def write_tiff(path: str, image: np.ndarray, bit_depth: int = 8, compress: bool = True) -> int:
+    """Write an (H, W, C) image as a striped TIFF (reference
+    io/native.py:105-134, whose pixels it writes): float input in [0, 255]
+    is clipped and truncated to uint8, or for 16 bits scaled by 65535/255
+    and rounded; uint8 / uint16 input is written as it is. The strips
+    deflate on the writer's thread pool (:class:`TiffStreamWriter`).
+    Returns the rows written, as the reference does."""
+    arr = np.asarray(image)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    if bit_depth == 16:
+        if arr.dtype != np.uint16:
+            arr = (np.clip(arr.astype(np.float64), 0, 255) / 255.0 * 65535.0 + 0.5).astype(
+                np.uint16)
+    elif arr.dtype != np.uint8:
+        arr = np.clip(arr, 0, 255).astype(np.uint8)
+    h, w, c = arr.shape
+    with TiffStreamWriter(path, h, w, channels=c, bit_depth=bit_depth,
+                          compress=compress) as writer:
+        writer.write(arr)
+    return h
 
 
 def content_hash(data: Union[np.ndarray, bytes]) -> str:

@@ -22,6 +22,7 @@ arm given them.
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
@@ -37,6 +38,8 @@ __all__ = [
     "cond_vector",
     "build_cond_polish",
     "apply_cond_polish",
+    "is_cond_polish_trained",
+    "clear_cond_cache",
     "jpeg_blockiness",
     "conditioned_draws",
     "conditioned_distort",
@@ -108,6 +111,30 @@ def build_cond_polish(
     from .registry import build_model  # the registry builds CondPolish too
 
     return build_model("cond_polish", 1, params, dtype, params_dtype, device)
+
+
+# checkpoint_dir -> what is_cond_polish_trained found
+_CACHE: Dict[Optional[str], bool] = {}
+
+
+def clear_cond_cache() -> None:
+    """Forget what :func:`is_cond_polish_trained` found (reference
+    conditioning.py:123)."""
+    _CACHE.clear()
+
+
+def is_cond_polish_trained(checkpoint_dir: Optional[str] = None) -> bool:
+    """Whether the port has trained polish weights: ``cond_polish_x1.pt`` in
+    ``checkpoint_dir``, else in the packaged directory (reference
+    conditioning.py:158, which looks in the same two places), kept per
+    directory until :func:`clear_cond_cache`."""
+    if checkpoint_dir not in _CACHE:
+        from .registry import PACKAGED_CHECKPOINT_DIR, checkpoint_path
+
+        _CACHE[checkpoint_dir] = any(
+            os.path.isfile(checkpoint_path("cond_polish", 1, d))
+            for d in (checkpoint_dir, PACKAGED_CHECKPOINT_DIR) if d)
+    return _CACHE[checkpoint_dir]
 
 
 def apply_cond_polish(

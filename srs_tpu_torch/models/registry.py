@@ -11,7 +11,11 @@ port never loads them. Parameters are handed in instead:
 - :func:`seeded_params` makes random parameters at a net's full width
   from a seed, with a non-zero tail so the net changes the pixels;
 - :func:`load_checkpoint` reads the state dict the port's trainer saves
-  (``models/train.save_checkpoint``) at ``{dir}/{name}_x{scale}.pt``.
+  (``models/train.save_checkpoint``) at ``{dir}/{name}_x{scale}.pt``;
+  :func:`is_pretrained` asks whether one is there.
+
+``PACKAGED_CHECKPOINT_DIR`` is the reference's packaged directory, by
+path; it holds orbax checkpoints only, which the port does not read.
 
 :func:`build_model` counts handed-in parameters as trained (the pipeline
 then skips back-projection, as the reference does for its packaged nets,
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.paths import REFERENCE_DIR
 from .conditioning import CondPolish
 from .nets import EDSR, ESPCN, RCAN, shuffle_channel_order
 
@@ -43,7 +48,15 @@ __all__ = [
     "init_params",
     "checkpoint_path",
     "load_checkpoint",
+    "is_pretrained",
+    "clear_param_cache",
+    "PACKAGED_CHECKPOINT_DIR",
 ]
+
+# The reference's packaged checkpoints (reference registry.py:106), by path.
+PACKAGED_CHECKPOINT_DIR = os.path.join(REFERENCE_DIR, "models", "checkpoints")
+# (name, scale, checkpoint_dir) -> what is_pretrained found
+_LOADED: Dict[Tuple[str, int, Optional[str]], bool] = {}
 
 
 @dataclass(frozen=True)
@@ -216,6 +229,30 @@ def load_checkpoint(name: str, scale: int,
     if not os.path.isfile(path):
         return None
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def clear_param_cache() -> None:
+    """Forget what :func:`is_pretrained` found (reference registry.py:79)."""
+    _LOADED.clear()
+
+
+def is_pretrained(name: str, scale: int = 2, checkpoint_dir: Optional[str] = None,
+                  dtype: Any = "bfloat16") -> bool:
+    """Whether the port has trained weights of ``name`` at ``scale``: a
+    state dict its trainer saved in ``checkpoint_dir``, else in
+    ``PACKAGED_CHECKPOINT_DIR`` (reference registry.py:84, which looks in
+    the same two places for its own checkpoints). The answer is kept per
+    (name, scale, directory) until :func:`clear_param_cache`, as the
+    reference keeps its probe build; ``dtype`` is the reference's
+    argument and changes nothing here. An unknown name raises
+    ``KeyError``."""
+    if name not in MODEL_REGISTRY and name != "cond_polish":
+        raise KeyError(name)
+    key = (name, scale, checkpoint_dir)
+    if key not in _LOADED:
+        _LOADED[key] = any(os.path.isfile(checkpoint_path(name, scale, d))
+                           for d in (checkpoint_dir, PACKAGED_CHECKPOINT_DIR) if d)
+    return _LOADED[key]
 
 
 def build_model(

@@ -75,8 +75,9 @@ __all__ = [
     "SuperResolutionModule",
 ]
 
-# Providers whose nets are the quality tier's; ``fast`` serves the fast net.
-QUALITY_ROLE = ("quality", "hybrid", "fusion", "shrink", "zssr")
+# Providers whose nets are the quality tier's; ``fast`` and ``veimagex``
+# serve the fast net (reference sr_module.py:735-741).
+QUALITY_ROLE = ("quality", "seedream", "hybrid", "fusion", "shrink", "zssr")
 
 
 class UpscaleProvider(Enum):

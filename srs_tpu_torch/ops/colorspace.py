@@ -10,6 +10,9 @@ runs it on bytes already fetched.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
@@ -76,21 +79,44 @@ def _srgb_decode(c: np.ndarray) -> np.ndarray:
     return np.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
 
 
+_ADOBE = ("adobergb", "adobe", "adobe_rgb")
+_PROPHOTO = ("prophoto", "prophotorgb", "prophoto_rgb")
+_BAND_SAMPLES = 1 << 22  # samples a thread converts at a time
+
+
+def _convert(rgb: np.ndarray, target: str) -> np.ndarray:
+    lin = _srgb_decode(np.clip(np.asarray(rgb, np.float64) / 255.0, 0.0, 1.0))
+    xyz = lin @ _SRGB_TO_XYZ.T
+    if target in _ADOBE:
+        out = np.clip(xyz @ _XYZ_TO_ADOBE.T, 0.0, 1.0) ** (256.0 / 563.0)
+    else:
+        xyz50 = xyz @ _BRADFORD_D65_TO_D50.T
+        out = np.clip(xyz50 @ _XYZ50_TO_PROPHOTO.T, 0.0, 1.0) ** (1.0 / 1.8)
+    return (out * 255.0).astype(np.float32)
+
+
 def convert_profile(rgb: np.ndarray, target: str) -> np.ndarray:
     """sRGB [0, 255] -> AdobeRGB or ProPhoto [0, 255] float32, relative
     colorimetric: linearize sRGB, matrix to XYZ (D65), Bradford-adapt to
     D50 for ProPhoto, matrix to the target primaries, then the target's
     encoding gamma (AdobeRGB 563/256, ProPhoto 1.8). sRGB returns the
-    input unchanged."""
+    input unchanged. Each pixel converts on its own, so a large image
+    converts in row bands on a thread pool (numpy releases the
+    interpreter lock)."""
     if target in ("sRGB", "srgb", None, ""):
         return rgb
-    lin = _srgb_decode(np.clip(np.asarray(rgb, np.float64) / 255.0, 0.0, 1.0))
-    xyz = lin @ _SRGB_TO_XYZ.T
-    if target.lower() in ("adobergb", "adobe", "adobe_rgb"):
-        out = np.clip(xyz @ _XYZ_TO_ADOBE.T, 0.0, 1.0) ** (256.0 / 563.0)
-    elif target.lower() in ("prophoto", "prophotorgb", "prophoto_rgb"):
-        xyz50 = xyz @ _BRADFORD_D65_TO_D50.T
-        out = np.clip(xyz50 @ _XYZ50_TO_PROPHOTO.T, 0.0, 1.0) ** (1.0 / 1.8)
-    else:
+    key = target.lower()
+    if key not in _ADOBE + _PROPHOTO:
         raise ValueError(f"unknown color space {target!r}")
-    return (out * 255.0).astype(np.float32)
+    rgb = np.asarray(rgb)
+    if rgb.ndim < 2 or rgb.size <= _BAND_SAMPLES:
+        return _convert(rgb, key)
+    out = np.empty(rgb.shape, np.float32)
+    rows = max(1, _BAND_SAMPLES // (rgb.size // rgb.shape[0]))
+
+    def band(r0: int) -> None:
+        out[r0 : r0 + rows] = _convert(rgb[r0 : r0 + rows], key)
+
+    with ThreadPoolExecutor(max(1, os.cpu_count() or 1)) as pool:
+        list(pool.map(band, range(0, rgb.shape[0], rows)))
+    return out

@@ -21,12 +21,13 @@ in full float32, as the reference's ``Precision.HIGHEST``).
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["cubic_weights", "resize_bicubic", "resize_bicubic_up", "resize_area_int"]
+__all__ = ["cubic_weights", "resize_bicubic", "resize_bicubic_up", "resize_area_int",
+           "resize_bicubic_banded"]
 
 _A = -0.75  # cv2's bicubic coefficient
 
@@ -194,3 +195,31 @@ def _resize_w_blocked(x: torch.Tensor, dst_n: int, mats: torch.Tensor, starts,
         src = x[:, start : start + src_b, :].transpose(1, 2)  # [H, C, src_b]
         outs.append(torch.matmul(src, mats[b]).transpose(1, 2))  # [H, out_b, C]
     return torch.cat(outs, dim=1)[:, :dst_n]
+
+
+def resize_bicubic_banded(
+    x: torch.Tensor,
+    out_h: int,
+    out_w: int,
+    bands: int = 8,
+    crop_h: Optional[int] = None,
+    crop_w: Optional[int] = None,
+    to_uint8=False,
+    as_iterator: bool = False,
+    as_device: bool = False,
+):
+    """The print-grade resize (reference ops/resize.py:262): (H, W, C) to
+    an (out_h, out_w, C) numpy array in uniform output row bands, with
+    the optional crop, clip and quantize (``to_uint8``: True or
+    "uint16"), as :func:`resize_bicubic` resizes. It is the banded
+    finalize with no coarse level (``ops.blend.blend_finalize_banded``),
+    and returns what that returns: an array, an iterator of bands, or
+    with ``as_device`` one tensor on ``x``'s device (int32 for
+    "uint16")."""
+    from .blend import blend_finalize_banded  # blend imports this module
+
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return blend_finalize_banded(x.float(), None, out_h, out_w, bands=bands, crop_h=crop_h,
+                                 crop_w=crop_w, to_uint8=to_uint8, as_iterator=as_iterator,
+                                 as_device=as_device)

@@ -2,10 +2,12 @@
 
 Stages, as the reference runs them (pipeline.py:896-1392), for the
 providers ``quality``, ``fast``, ``hybrid``, ``fusion``, ``bicubic`` and
-``zssr``:
+``zssr``, and the reference's remote provider names ``seedream`` (served
+as ``quality``: the quality nets, routed) and ``veimagex`` (served as
+``fast``):
 
 1. tiling: load the image and upload it once; for ``quality``,
-   ``hybrid`` and ``fusion``, route it (degradation estimate, then the
+   ``seedream``, ``hybrid`` and ``fusion``, route it (degradation estimate, then the
    SR-gain probe, which may send the job to the ``shrink`` or ``bicubic``
    ladder with a per-job alpha); choose the ladder from the nets the
    provider serves; mirror-pad and cut one [N, B, B, 3] batch;
@@ -138,16 +140,22 @@ _POLISH_PX_BYTES, _COND_PX_BYTES = 192, 3 * 96
 
 # Providers whose jobs are routed (degradation estimate and SR-gain
 # probe), as in the reference (pipeline.py:932,954-956).
-_ROUTED_PROVIDERS = ("quality", "hybrid", "fusion")
+_ROUTED_PROVIDERS = ("quality", "seedream", "hybrid", "fusion")
 
 # Options of the reference that this port does not serve yet, with the
 # values it does serve.
 _NOT_PORTED = {
-    "provider": ("quality", "fast", "hybrid", "bicubic", "fusion", "zssr"),
+    "provider": ("quality", "fast", "hybrid", "bicubic", "fusion", "zssr", "seedream",
+                 "veimagex"),
     "blend_method": ("laplacian", "multi_band", "weighted", "weighted_average", "feather",
                      "gradient", "gradient_domain", "poisson"),
     "sr_gain_route": ("shrink", "bicubic", "zssr"),
 }
+
+
+# ``qa_device`` names: the accelerator's (the reference's default "tpu")
+# mean the pipeline's device; "cpu" runs QA on the CPU.
+_QA_DEVICES = ("tpu", "gpu", "cuda", "cpu")
 
 
 class PipelineCancelled(RuntimeError):
@@ -158,16 +166,26 @@ class PipelineCancelled(RuntimeError):
 class PipelineConfig:
     """Pipeline knobs (reference: ``srs_tpu.pipeline.PipelineConfig``),
     with the reference's defaults. Options outside ``_NOT_PORTED``'s
-    values raise ``NotImplementedError``."""
+    values raise ``NotImplementedError``. The ``volc_*`` credentials are
+    accepted and ignored, as in the reference (no remote engine), and so
+    are ``seedream_strength`` and ``seedream_steps`` (the latter keys the
+    tile store, as in the reference)."""
 
     block_size: int = 512
     overlap_ratio: float = 0.2
     padding_mode: str = "mirror"
     target_resolution: str = "100MP"
+    seedream_strength: float = 0.5
+    seedream_steps: int = 50
     blend_method: str = "laplacian"
     num_pyramid_levels: int = 6
     enable_qa: bool = True
-    provider: str = "quality"  # quality | fast | hybrid | bicubic | fusion | zssr
+    # Where QA runs: "tpu", "gpu" or "cuda" (the accelerator) mean the
+    # pipeline's device, "cpu" the CPU; another name raises.
+    qa_device: str = "tpu"
+    # quality | fast | hybrid | bicubic | fusion | zssr | seedream (quality)
+    # | veimagex (fast)
+    provider: str = "quality"
     quality_model: str = "edsr_xl"
     fast_model: str = "espcn"  # the fast net (provider fast)
     # Probe each input's noise and blur (damaged inputs serve the robust
@@ -217,6 +235,9 @@ class PipelineConfig:
     # raises); on "cpu" the CPU repeated to the mesh's size (a -1 axis
     # takes 1).
     mesh_shape: Optional[Dict[str, int]] = None
+    volc_ak: str = ""
+    volc_sk: str = ""
+    volc_region: str = ""
 
     def __post_init__(self) -> None:
         for name, served in _NOT_PORTED.items():
@@ -226,6 +247,8 @@ class PipelineConfig:
                                           f"Queue 1); use one of {served!r}")
         if self.bit_depth not in (8, 16):
             raise ValueError(f"bit_depth must be 8 or 16, got {self.bit_depth}")
+        if self.qa_device not in _QA_DEVICES:
+            raise ValueError(f"qa_device must be one of {_QA_DEVICES}, got {self.qa_device!r}")
 
 
 @dataclass
@@ -317,8 +340,10 @@ class SuperResolutionPipeline:
         )
         self.quality_module: Optional[QualityAssessmentModule] = None
         if self.config.enable_qa:
+            qa_device = (torch.device("cpu") if self.config.qa_device == "cpu"
+                         else self.device)
             self.quality_module = QualityAssessmentModule(
-                sys_cfg.quality, self.device, LPIPSMetric(lpips_params, self.device))
+                sys_cfg.quality, qa_device, LPIPSMetric(lpips_params, qa_device))
         # The scheduler books each job's tiles as tasks and drives the SR
         # stage's retry and degradation ladder; its agents are the CUDA
         # devices (on the CPU, the one device the pipeline runs on).
@@ -579,7 +604,8 @@ class SuperResolutionPipeline:
     # -- stage 2 with failure recovery (reference pipeline.py:542-623) ------
     # Where a failed provider degrades to; any other to bicubic.
     _FALLBACK_PROVIDERS = {"quality": "fast", "hybrid": "fast", "zssr": "fast",
-                           "fusion": "fast", "fast": "bicubic"}
+                           "seedream": "fast", "fusion": "fast",
+                           "fast": "bicubic", "veimagex": "bicubic"}
 
     def _run_stage2(self, image_dev: torch.Tensor, tiles: torch.Tensor, ladder: List[int],
                     layout, tasks: List[Task], provider: str, model: Optional[str],
@@ -689,10 +715,10 @@ class SuperResolutionPipeline:
         conditioned polish's weights, per step each net with its passes and
         weights (per-scale selection, routing, the fusion members and
         their weights, the self-ensemble, the hybrid polish; for zssr the
-        base net's), ``zssr_steps`` on zssr, and this job's alpha on the
-        shrink route. The reference keys on net names (its weights are its
-        packaged checkpoints), ``zssr_steps`` and a knob the port lacks
-        (seedream steps). A zssr key holds the base's weights and the
+        base net's), ``zssr_steps`` on zssr, ``seedream_steps`` (as the
+        reference keys it, though no net reads it), and this job's alpha
+        on the shrink route. The reference keys on net names (its weights
+        are its packaged checkpoints). A zssr key holds the base's weights and the
         steps, not the tuned weights: tuning on the card is not bitwise
         repeatable, and the same base and steps tune the same net."""
         if not self.config.enable_checkpoint:
@@ -710,7 +736,7 @@ class SuperResolutionPipeline:
                int(layout.overlap), cfg.padding_mode, cfg.compute_dtype, cfg.params_dtype,
                category, sr.weights_digest("cond_polish", 1) if sr.conditions(category) else None,
                steps, float(alpha) if provider == "shrink" and alpha is not None else None,
-               cfg.zssr_steps if provider == "zssr" else None]
+               cfg.zssr_steps if provider == "zssr" else None, cfg.seedream_steps]
         return "sr-" + hashlib.md5(json.dumps(sig).encode()).hexdigest()
 
     @staticmethod
@@ -813,7 +839,8 @@ class SuperResolutionPipeline:
             step_members = [[list(m) for m in sr.step_members(int(s), serving, model)]
                             for s in ladder]
             model_used = model or (step_models[0] if step_models else
-                                   cfg.fast_model if served == "fast" else cfg.quality_model)
+                                   cfg.fast_model if served in ("fast", "veimagex")
+                                   else cfg.quality_model)
         route_info.update(provider=served, model=model, ladder_models=step_models)
         return {
             "ladder": list(ladder),
@@ -955,7 +982,7 @@ class SuperResolutionPipeline:
 
     def _fullres_noref(self, crops: List[np.ndarray]) -> Dict[str, Any]:
         """NIQE, BRISQUE, sharpness and contrast averaged over full-resolution
-        output crops, each shape group scored in one batch on the device
+        output crops, each shape group scored in one batch on QA's device
         (reference pipeline.py:804-846)."""
         acc: Dict[str, List[float]] = {}
         by_shape: Dict[Tuple[int, ...], List[np.ndarray]] = {}
@@ -965,7 +992,7 @@ class SuperResolutionPipeline:
                 arr = arr / 257.0
             by_shape.setdefault(arr.shape, []).append(arr)
         for group in by_shape.values():
-            batch = torch.from_numpy(np.stack(group)).to(self.device)
+            batch = torch.from_numpy(np.stack(group)).to(self.quality_module.device)
             raw = noref.no_reference_metrics(batch)
             host = {k: v.cpu().numpy().astype(np.float64) for k, v in raw.items()}
             nq, bq = niqe_scores(batch), brisque_scores(batch)
@@ -1122,6 +1149,8 @@ class SuperResolutionPipeline:
                 image_hash = self.tiling_module.compute_image_hash(
                     input_path if isinstance(input_path, str) else image)
 
+        logger.info("Stage 1: %dx%d -> %dx%d grid (block %d, overlap %d), ladder %s",
+                    w, h, layout.nx, layout.ny, layout.block, layout.overlap, ladder)
         self._check_cancel("super_resolution")
         if self._stage_sem is not None:
             sem = self._stage_sem
@@ -1215,6 +1244,8 @@ class SuperResolutionPipeline:
             if output_path.lower().endswith((".tiff", ".tif")):
                 self._write_tiff(output_path, bands, th, tw, split,
                                  crops if quality_report is not None else None)
+                logger.info("save breakdown: fetch %.2fs, write %.2fs", split["fetch"],
+                            split["write"])
             else:
                 # reference pipeline.py:1340-1354: one array through save_image
                 out = np.concatenate(list(_timed(bands, split, "fetch")), axis=0)

@@ -35,6 +35,8 @@ __all__ = [
     "niqe_score",
     "brisque_scores",
     "brisque_score",
+    "brisque_features",
+    "brisque_expand",
     "image_features36",
     "niqe_features",
     "fit_pristine_model",
@@ -205,7 +207,15 @@ def _mahalanobis_score(f: np.ndarray, mu_p: np.ndarray, cov_p: np.ndarray) -> Op
         return None
 
 
-def _brisque_expand(z: np.ndarray) -> np.ndarray:
+def brisque_features(image: torch.Tensor) -> torch.Tensor:
+    """BRISQUE's 36 features of one (H, W, C) image: 18 NSS features at
+    two scales over the whole image (reference qa/niqe.py:312)."""
+    return image_features36(_gray(image[None]).float())[0]
+
+
+def brisque_expand(z: np.ndarray) -> np.ndarray:
+    """The quadratic map [z, z^2, |z|] the BRISQUE regressor reads
+    (reference qa/niqe.py:328)."""
     return np.concatenate([z, z * z, np.abs(z)], axis=-1)
 
 
@@ -258,7 +268,7 @@ def brisque_scores(images: torch.Tensor) -> List[Optional[float]]:
         if not np.all(np.isfinite(f)):
             out.append(None)
             continue
-        z = _brisque_expand((f - mu) / sd)
+        z = brisque_expand((f - mu) / sd)
         out.append(float(np.clip(z @ w + b, 0.0, 100.0)))
     return out
 

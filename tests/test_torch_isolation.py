@@ -42,8 +42,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     # repair, colour correction, content-aware tiling, the trainer, the
     # corpus and the photo harvest, commercial QA, the blending module and
     # the examples, the generator, the bench and the FLOP and trace
-    # utilities, and the device mesh (parallel/ and its four modules) too
-    assert int(count) >= 63
+    # utilities, the device mesh (parallel/ and its six modules), the web
+    # UI (webui/, its pages) and utils/logging too
+    assert int(count) >= 77
     assert bad == "", f"imported: {bad}"
 
 

@@ -158,8 +158,11 @@ def test_zssr_options_are_served(field, value):
     assert getattr(cfg, field) == getattr(JaxConfig(**{field: value}), field) == value
     assert cfg.zssr_steps == JaxConfig().zssr_steps == 150
     assert SuperResolutionPipeline(cfg).config is cfg
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PipelineConfig(device="cpu", provider="seedream")
+    # the reference's remote provider names are served as it serves them
+    # (tests/test_torch_provider_aliases.py holds their pixels)
+    for name in ("seedream", "veimagex"):
+        assert PipelineConfig(device="cpu", provider=name).provider == \
+            JaxConfig(provider=name).provider == name
 
 
 @pytest.mark.parametrize("size,target", [((1280, 720), "100MP"), ((720, 1280), "150MP"),
