@@ -198,7 +198,32 @@ in order, each printing one JSON line with its seconds:
 27. dryrun: ``parallel/dryrun.dryrun_multichip(8)`` on a virtual mesh of
    ``cuda:0``, once with every K1/K2 launch held against the plain
    version, then with the counts reset;
-28. kernel_shapes: K1 and K2 timed at every distinct (input, output)
+28. drivers: the drivers of ``srs_tpu_torch/drivers/``. ``proof_200mp``
+   at the 200MP preset at 16 bits (17320x9742 from the 720x1280 input on
+   the [3, 4] ladder, 6 tiles of 512 px to 6144 px): once as a
+   subprocess (cold), then in this process with every K1/K2 launch held
+   against the plain version ([6,6144^2,3] among them), then timed with
+   the counts reset: ``PROOF OK``, one SR attempt, no degradation, peak
+   memory under 80 GB, stage times and MP/s; the TIFF read back
+   (uint16, outside the timing) and area-downscaled to 1280x720 at least
+   30 dB from the input. ``quality_bench --n 2 --size 512 --no-photo``
+   (seven rows, launches held). The training drivers for a few steps
+   into a temporary directory (``pretrain --only edsr_xl_x3 --mix proc``,
+   ``train_polish``, ``train_cond``, which must move the FiLM layer,
+   ``train_lpips``, ``fit_qa_models --only lpips``, ``train_ark``): finite
+   losses, each saved file reloading equal; ``reeval`` on pretrain's net
+   (its PSNR within 1e-3 dB of pretrain's) and ``eval_ark`` on the
+   generator just trained; and the photo-bound drivers (``photo_eval``,
+   ``routed_panel``, ``cond_panel``, ``fit_fusion``, the full
+   ``fit_qa_models``, quality_bench's photo row) raise
+   ``PhotoDataMissing`` naming a missing package;
+29. drivers_reference: card against CPU at a reduced size: the proof at
+   32x18 -> 416x234 (still [3, 4]) within 16 in 16-bit units,
+   ``quality_bench --n 1 --size 192`` with seeded nets behind every row,
+   each row within 0.05 dB and no two alike, and ``pretrain`` 3 steps of
+   a seeded espcn x2 in float32 with TF32 off on the same batches, the
+   loss within relative 1e-3 and the parameters' change within 1e-2;
+30. kernel_shapes: K1 and K2 timed at every distinct (input, output)
    shape that the warm-up runs launched, each with its launches per
    path, bound and share of the bound.
 
@@ -211,7 +236,7 @@ share, device launches a step and time by kernel and op; and the
 generator's training step, 50-step sample and refinement chunk at the
 packaged width, likewise.
 Then it prints a ``done`` line with the total seconds, the kernels' JSON
-line (each kernel's entry with its ``shapes`` of phase 28), the ``nvidia-smi``
+line (each kernel's entry with its ``shapes`` of phase 30), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Without a CUDA card, or without the port
 beside it, it exits with code 2 and prints no result. Outputs go to a
@@ -3336,6 +3361,423 @@ def dryrun_phase(torch, K) -> dict:
             "launches_by_shape": launches_by_shape(held)}
 
 
+# -- the drivers under scripts/ (phases 28 and 29) ------------------------------
+
+PROOF_OUT = (17320, 9742)  # (width, height) of the 200MP preset at 16:9
+PROOF_LADDER = [3, 4]
+PROOF_PEAK_GB = 80.0
+PROOF_READBACK_PSNR_DB = 30.0
+# The largest K1/K2 launches of the proof: 6 tiles of 512 px x12.
+PROOF_K1 = ([6, 6144, 6144, 3], [6, 3072, 3072, 3])
+PROOF_K2_OUT = [6, 6144, 6144, 3]
+# Card against CPU (phase 29): the proof's 16-bit TIFFs within 16 units,
+# a sixteenth of one 8-bit LSB (257 units), so 8-bit pixels scaled to 16
+# bits would fail; quality_bench's rows (bf16 nets) within 0.05 dB;
+# pretrain from a seeded espcn x2 (float32, TF32 off), its loss within
+# relative 1e-3 and its parameters' change within relative 1e-2 of the
+# CPU's change.
+PROOF_REF_UNITS = 16
+QBENCH_REF_DB = 0.05
+QBENCH_ROWS = 7
+TRAIN_UPDATE_RTOL = 1e-2
+# quality_bench's rows card against CPU in groups, each with a checkpoint
+# directory of its own seeded nets (seeds 42, 43, ... in a group's order),
+# so that every row serves the nets it names: the net rows with routing and
+# per-scale selection off (else the SR-gain probe shrinks a random net to
+# bicubic, and selection serves one net for all three quality rows); hybrid
+# with the polish alone trained (it polishes only an untrained quality
+# net); zssr tuning espcn x2 (tuned from the zero-tail untrained net,
+# Adam's first steps scale rounding-level gradients up to the learning rate
+# and the two devices drift apart, 0.06-0.07 dB even in float32; a seeded
+# edsr_xl would take minutes to tune on the CPU).
+QBENCH_GROUPS = (
+    (("bicubic", "fast", "quality"),
+     (("espcn", 2), ("edsr_xl", 2), ("rcan", 2), ("edsr_l", 2)),
+     {"auto_route": False, "per_scale_selection": False}),
+    (("hybrid",), (("espcn_polish", 1),), {"auto_route": False, "per_scale_selection": False}),
+    (("zssr",), (("espcn", 2),), {}),
+)
+
+
+def proof_check(report: dict, name: str) -> None:
+    """What the proof must show (the reference's proof row): the preset's
+    size at 16 bits on the [3, 4] ladder, a whole file, one SR attempt and
+    no degradation."""
+    bad = []
+    if (report["width"], report["height"]) != PROOF_OUT or report["bits_tag"] != 16:
+        bad.append(f"{report['width']}x{report['height']} at {report['bits_tag']} bits")
+    if report["ladder"] != PROOF_LADDER:
+        bad.append(f"ladder {report['ladder']}")
+    if report["sr_attempts"] != 1 or report["sr_degradations"] != 0:
+        bad.append(f"sr_attempts {report['sr_attempts']}, "
+                   f"sr_degradations {report['sr_degradations']}")
+    if not report["header_ok"]:
+        bad.append("header check failed")
+    if bad:
+        fail(f"drivers: {name}: {'; '.join(bad)}")
+
+
+def proof_phase(torch, K, tmp: str) -> dict:
+    """``proof_200mp`` at the 200MP preset, 16 bits: once as a user runs it
+    (``python3 -m srs_tpu_torch.drivers.proof_200mp``, cold), then in this
+    process with every K1/K2 launch held against the plain version, then
+    timed with the launch counts set to 0 just before and read just after;
+    the TIFF read back with ``read_tiff`` (outside the timing) and
+    area-downscaled to the input's size, its PSNR against the input."""
+    import torch.nn.functional as F
+
+    from srs_tpu_torch.drivers import proof_200mp
+    from srs_tpu_torch.io.image import load_image
+    from srs_tpu_torch.io.native import read_tiff
+
+    out_dir = os.path.join(tmp, "proof")
+    args = ["--target", "200MP", "--bit-depth", "16", "--out", out_dir]
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "srs_tpu_torch.drivers.proof_200mp", *args],
+                          capture_output=True, text=True, timeout=600)
+    cold_s = time.time() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or lines[-1] != "PROOF OK":
+        fail(f"drivers: proof_200mp subprocess exited {proc.returncode}: "
+             f"{proc.stdout[-1500:]} {proc.stderr[-2500:]}")
+    cold = json.loads(lines[-2])
+    proof_check(cold, "proof_200mp (subprocess)")
+    os.remove(cold["output"])
+
+    K.reset_launches()
+    with held_against_plain(K) as records:
+        warm = proof_200mp.main(args)
+    torch.cuda.synchronize()
+    held = check_held(K, "proof_200mp", records)
+    proof_check(warm, "proof_200mp (held)")
+    os.remove(warm["output"])
+    shapes = {(kname, str(s_in), str(s_out)) for kname, s_in, s_out, _e in records}
+    if ("pyr_down", str(PROOF_K1[0]), str(PROOF_K1[1])) not in shapes or \
+            not any(k == "pyr_up" and s_out == str(PROOF_K2_OUT) for k, _i, s_out in shapes):
+        fail(f"drivers: the proof never launched K1 {PROOF_K1} or K2 to {PROOF_K2_OUT}")
+    torch.cuda.empty_cache()
+
+    K.reset_launches()
+    timed = proof_200mp.main(args)
+    launches = dict(K.LAUNCHES)
+    proof_check(timed, "proof_200mp (timed)")
+    for kname, n in launches.items():
+        if n <= 0:
+            fail(f"drivers: proof_200mp never launched kernel {kname}")
+    if timed["peak_mem_gb"] >= PROOF_PEAK_GB:
+        fail(f"drivers: proof peak memory {timed['peak_mem_gb']:.2f} GB >= {PROOF_PEAK_GB}")
+
+    t0 = time.time()
+    pixels = read_tiff(timed["output"])
+    read_s = time.time() - t0
+    h, w = PROOF_OUT[1], PROOF_OUT[0]
+    if pixels.dtype != np.uint16 or pixels.shape != (h, w, 3):
+        fail(f"drivers: proof read back {pixels.shape} {pixels.dtype}")
+    inp = load_image(os.path.join(out_dir, "in.png"))
+    with torch.no_grad():
+        big = torch.from_numpy(pixels.view(np.int16)).cuda()
+        del pixels
+        big = (big.int() & 0xFFFF).float().div_(257.0)  # uint16 -> 8-bit scale
+        small = F.interpolate(big.permute(2, 0, 1)[None], size=inp.shape[:2], mode="area")
+        del big
+        small = small[0].permute(1, 2, 0).cpu().numpy()
+    torch.cuda.empty_cache()
+    mse = float(np.mean((small.astype(np.float64) - inp) ** 2))
+    readback_db = float(10 * np.log10(255.0**2 / max(mse, 1e-12)))
+    if readback_db < PROOF_READBACK_PSNR_DB:
+        fail(f"drivers: the proof read back at {readback_db:.2f} dB against its input "
+             f"(< {PROOF_READBACK_PSNR_DB})")
+    os.remove(timed["output"])
+    keep = ("file_bytes", "file_gb", "compression", "strip_count", "rows_per_strip",
+            "stage_times", "elapsed_s_exact", "mp_per_s", "peak_mem_gb", "save_breakdown",
+            "quality_score", "ladder", "sr_attempts", "sr_degradations")
+    return {
+        "output": list(PROOF_OUT), "bits": 16,
+        "cold": {"command_s": cold_s, **{k: cold[k] for k in keep}},
+        "held_run": {k: warm[k] for k in ("elapsed_s_exact", "peak_mem_gb", "stage_times")},
+        "timed": {k: timed[k] for k in keep},
+        "launches": launches, "held_against_plain": held,
+        "launches_by_shape": launches_by_shape(held),
+        "readback": {"read_tiff_s": read_s, "psnr_db_vs_input": readback_db,
+                     "floor_db": PROOF_READBACK_PSNR_DB},
+    }
+
+
+def qbench_phase(torch, K) -> dict:
+    """``quality_bench --n 2 --size 512 --no-photo`` (cut from six images):
+    the seven provider rows, every K1/K2 launch held against its plain
+    version."""
+    from srs_tpu_torch.drivers import quality_bench
+
+    K.reset_launches()
+    t0 = time.time()
+    with held_against_plain(K) as records:
+        rows = quality_bench.main(["--n", "2", "--size", "512", "--no-photo"])
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    held = check_held(K, "quality_bench", records)
+    launches = dict(K.LAUNCHES)
+    if len(rows) != QBENCH_ROWS or not all(np.isfinite(r["psnr_mean"]) for r in rows):
+        fail(f"drivers: quality_bench rows {rows}")
+    return {"rows": rows, "seconds": seconds, "launches": launches,
+            "held_against_plain": held}
+
+
+def photo_bound_drivers(tmp: str, ckdir: str) -> dict:
+    """The drivers that need photographs raise ``PhotoDataMissing`` naming
+    the missing packages where none is installed (as on the card)."""
+    from srs_tpu_torch.drivers import (cond_panel, fit_fusion, fit_qa_models, photo_eval,
+                                       quality_bench, routed_panel)
+    from srs_tpu_torch.models.photo_data import (EVAL_HOLDOUT_SOURCES, PHOTO_SOURCES,
+                                                 PhotoDataMissing, missing_packages)
+
+    missing = {"panel": missing_packages(EVAL_HOLDOUT_SOURCES + [photo_eval.PORTRAIT]),
+               "training": missing_packages(PHOTO_SOURCES)}
+    calls = {
+        "photo_eval": (photo_eval.main, ["--checkpoint-dir", ckdir], "panel"),
+        "routed_panel": (routed_panel.main, ["--checkpoint-dir", ckdir], "panel"),
+        "cond_panel": (cond_panel.main, ["--checkpoint-dir", ckdir], "panel"),
+        "quality_bench_photo_row": (quality_bench.main, ["--n", "0"], "panel"),
+        "fit_fusion": (fit_fusion.main, ["--checkpoint-dir", ckdir], "training"),
+        "fit_qa_models": (fit_qa_models.main, ["--out", os.path.join(tmp, "qa_full")],
+                          "training"),
+    }
+    out = {"missing_packages": missing}
+    for name, (main, args, needs) in calls.items():
+        if len(missing[needs]) == 0:
+            out[name] = "photo packages installed: not applicable"
+            continue
+        try:
+            main(args)
+        except PhotoDataMissing as e:
+            if not any(pkg in str(e) for pkg in missing[needs]):
+                fail(f"drivers: {name}'s error names no missing package: {e}")
+            out[name] = str(e)
+            continue
+        fail(f"drivers: {name} ran without its photographs")
+    return out
+
+
+def reloads_equal(torch, path: str, state: dict) -> bool:
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    return set(saved) == set(state) and all(torch.equal(saved[k], state[k]) for k in state)
+
+
+def training_drivers(torch, tmp: str, ckdir: str) -> dict:
+    """The training drivers the card can run, for a few steps each into a
+    temporary checkpoint directory: finite losses, each saved file reloads
+    equal, the FiLM layer trains; then ``reeval`` on the net ``pretrain``
+    wrote and ``eval_ark`` on the generator ``train_ark`` wrote."""
+    from srs_tpu_torch.drivers import (eval_ark, fit_qa_models, pretrain, reeval, train_ark,
+                                       train_cond, train_lpips, train_polish)
+
+    out, seconds = {}, {}
+
+    def run(name, fn, args):
+        t0 = time.time()
+        rep = fn(args)
+        torch.cuda.synchronize()
+        seconds[name] = time.time() - t0
+        return rep
+
+    rep = run("pretrain", pretrain.main, ["--only", "edsr_xl_x3", "--steps", "20", "--mix",
+                                          "proc", "--corpus-n", "16", ckdir])
+    entry = rep["eval"]["edsr_xl_x3"]
+    if not np.isfinite(entry["final_loss"]) or not reloads_equal(
+            torch, os.path.join(ckdir, "edsr_xl_x3.pt"), rep["states"]["edsr_xl_x3"]):
+        fail(f"drivers: pretrain: loss {entry['final_loss']} or its checkpoint")
+    out["pretrain"] = entry
+    for name, fn, args in (
+            ("train_polish", train_polish.main, ["--steps", "20", "--scan-chunk", "10"]),
+            ("train_cond", train_cond.main, ["--steps", "20", "--scan-chunk", "10"])):
+        rep = run(name, fn, [*args, "--mix", "proc", "--corpus-n", "16", "--out", ckdir])
+        if not np.isfinite(rep["chunk_losses"]).all() or not reloads_equal(
+                torch, rep["path"], rep["state"]):
+            fail(f"drivers: {name}: losses {rep['chunk_losses']} or its checkpoint")
+        out[name] = {"eval": rep["eval"], "chunk_losses": rep["chunk_losses"],
+                     **({"film_weight_moved": rep["film_weight_moved"]}
+                        if name == "train_cond" else {})}
+    if not out["train_cond"]["film_weight_moved"] > 0:
+        fail("drivers: train_cond did not train the FiLM layer")
+    rep = run("train_lpips", train_lpips.main, ["--net", "alex", "--steps", "100", "--mix",
+                                                "proc", "--pairs-n", "4", "--holdout-n", "2",
+                                                "--out", ckdir])
+    lp = rep["nets"]["alex"]
+    if not np.isfinite(lp["chunk_losses"]).all() or not reloads_equal(torch, lp["path"],
+                                                                       lp["state"]):
+        fail(f"drivers: train_lpips: losses {lp['chunk_losses']} or its checkpoint")
+    out["train_lpips"] = {k: lp[k] for k in ("rank_acc_random", "rank_acc_trained",
+                                             "chunk_losses")}
+    rep = run("fit_qa_models", fit_qa_models.main, ["--only", "lpips", "--out",
+                                                    os.path.join(tmp, "qa"),
+                                                    "--checkpoint-dir", ckdir])
+    out["fit_qa_models_lpips"] = rep
+    rep = run("train_ark", train_ark.main, ["--steps", "100", "--scan-chunk", "50",
+                                            "--n-per-class", "8", "--size", "32", "--base",
+                                            "32", "--depth", "1", "--batch", "16", "--out",
+                                            ckdir])
+    if not all(np.isfinite(loss) for _s, loss in rep["logged"]) or not reloads_equal(
+            torch, rep["path"], rep["state"]):
+        fail(f"drivers: train_ark: logged {rep['logged']} or its checkpoint")
+    out["train_ark"] = {"eval": rep["eval"], "logged": rep["logged"]}
+
+    rep = run("reeval", reeval.main, [ckdir])
+    if list(rep) != ["edsr_xl_x3"] or abs(rep["edsr_xl_x3"]["psnr_net"]
+                                          - entry["psnr_net"]) > 1e-3:
+        fail(f"drivers: reeval of pretrain's net: {rep} against {entry}")
+    out["reeval"] = rep
+    rep = run("eval_ark", eval_ark.main, ["--k", "2", "--real-n", "4", "--steps", "10",
+                                          "--checkpoint-dir", ckdir])
+    if not rep["ok"] or not 0.0 <= rep["class_accuracy"] <= 1.0:
+        fail(f"drivers: eval_ark on train_ark's generator: {rep}")
+    out["eval_ark"] = rep
+    out["seconds"] = seconds
+    return out
+
+
+def drivers_phase(torch, K, tmp: str) -> dict:
+    """Phase 28: the drivers of ``srs_tpu_torch/drivers/`` on the card."""
+    t0 = time.time()
+    proof = proof_phase(torch, K, tmp)
+    proof_s = time.time() - t0
+    qbench = qbench_phase(torch, K)
+    ckdir = os.path.join(tmp, "driver_models")
+    t0 = time.time()
+    train = training_drivers(torch, tmp, ckdir)
+    train_s = time.time() - t0
+    t0 = time.time()
+    photo = photo_bound_drivers(tmp, ckdir)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return {"proof_200mp": proof, "quality_bench": qbench, "training_and_eval": train,
+            "photo_bound": photo,
+            "seconds": {"proof": proof_s, "quality_bench": qbench["seconds"],
+                        "training_and_eval": train_s, "photo_bound": time.time() - t0}}
+
+
+@contextlib.contextmanager
+def batches_drawn_on_the_cpu():
+    """``train_synthetic``'s batches drawn from a CPU generator and copied
+    to the corpus's device, so a card run and a CPU run train on the same
+    patches (the card's Philox generator and the CPU's Mersenne twister
+    give different numbers for one seed)."""
+    import torch
+
+    import srs_tpu_torch.models.train as train_mod
+
+    real = train_mod._train_batch
+    gen = torch.Generator().manual_seed(1)
+
+    def on_cpu(corpus, batch, hp, _gen, hr_grain):
+        return real(corpus.cpu(), batch, hp, gen, hr_grain).to(corpus.device)
+
+    train_mod._train_batch = on_cpu
+    try:
+        yield
+    finally:
+        train_mod._train_batch = real
+
+
+@contextlib.contextmanager
+def qbench_rows(rows):
+    """``quality_bench`` runs only ``rows`` of its providers."""
+    from srs_tpu_torch.drivers import quality_bench
+
+    real = quality_bench.PROVIDERS
+    quality_bench.PROVIDERS = rows
+    try:
+        yield
+    finally:
+        quality_bench.PROVIDERS = real
+
+
+def drivers_reference(torch, tmp: str) -> dict:
+    """Phase 29: the drivers card against CPU at a reduced size. The proof
+    on a 32x18 input to 416x234 (13x, still the [3, 4] ladder), 16-bit
+    TIFFs within ``PROOF_REF_UNITS``; ``quality_bench --n 1 --size 192``
+    (192, not 128: zssr's 48-px LR patches need a 96-px input at x2) in
+    the groups of ``QBENCH_GROUPS``, each row within ``QBENCH_REF_DB`` and
+    no two rows alike; ``pretrain`` for 3 steps of espcn x2 from seeded
+    weights, in float32 with TF32 off on the same batches, loss within
+    ``TRAIN_LOSS_RTOL`` and the parameters' change within
+    ``TRAIN_UPDATE_RTOL`` of the CPU's change."""
+    from srs_tpu_torch.drivers import pretrain, proof_200mp, quality_bench
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.models.registry import seeded_params
+    from srs_tpu_torch.models.train import save_checkpoint
+
+    out = {}
+    tiffs = {}
+    for dev in ("cuda", "cpu"):
+        rep = proof_200mp.main(["--device", dev, "--source", "32x18", "--target", "416x234",
+                                "--block-size", "32", "--out", os.path.join(tmp, f"proof_{dev}")])
+        if rep["ladder"] != PROOF_LADDER:
+            fail(f"drivers_reference: proof on {dev}: ladder {rep['ladder']}")
+        tiffs[dev] = read_tiff(rep["output"]).astype(np.int32)
+    units = int(np.abs(tiffs["cuda"] - tiffs["cpu"]).max())
+    if units > PROOF_REF_UNITS:
+        fail(f"drivers_reference: the proof's TIFFs differ by {units} > {PROOF_REF_UNITS}")
+    out["proof_200mp"] = {"max_units": units, "tolerance": PROOF_REF_UNITS}
+
+    rows = {"cuda": [], "cpu": []}
+    for gi, (providers, nets, cfg) in enumerate(QBENCH_GROUPS):
+        ck = os.path.join(tmp, f"qbench_{gi}")
+        for seed, (name, scale) in enumerate(nets, 42):
+            save_checkpoint(seeded_params(name, scale, seed=seed), name, scale, ck)
+        # every group runs the bicubic row, which the bench's summary reads
+        group = [(p, {**extra, **cfg}) for p, extra in quality_bench.PROVIDERS
+                 if p in providers or p == "bicubic"]
+        for dev in ("cuda", "cpu"):
+            with qbench_rows(group):
+                got = quality_bench.main(
+                    ["--n", "1", "--size", "192", "--no-photo", "--checkpoint-dir", ck,
+                     *(["--cpu"] if dev == "cpu" else [])])
+            rows[dev] += [r for r in got if r["provider"] != "bicubic" or gi == 0]
+    torch.backends.cudnn.allow_tf32 = False
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_dir = os.path.join(tmp, "pre_init")
+    init = seeded_params("espcn", 2, seed=7)
+    save_checkpoint(init, "espcn", 2, init_dir)
+    losses, deltas = {}, {}
+    try:
+        for dev in ("cuda", "cpu"):
+            with batches_drawn_on_the_cpu():
+                rep = pretrain.main(["--only", "espcn_x2", "--steps", "3", "--scan-chunk", "1",
+                                     "--corpus-n", "4", "--mix", "proc", "--device", dev,
+                                     "--dtype", "float32", "--init-from", init_dir,
+                                     os.path.join(tmp, f"pre_{dev}")])
+            losses[dev] = rep["eval"]["espcn_x2"]
+            state = rep["states"]["espcn_x2"]
+            deltas[dev] = torch.cat([(state[k] - init[k]).flatten() for k in sorted(init)])
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    diffs = {r["provider"]: abs(r["psnr_mean"] - c["psnr_mean"])
+             for r, c in zip(rows["cuda"], rows["cpu"])}
+    if len(diffs) != QBENCH_ROWS or max(diffs.values()) > QBENCH_REF_DB:
+        fail(f"drivers_reference: quality_bench card {rows['cuda']} CPU {rows['cpu']}")
+    served = [r["psnr_mean"] for r in rows["cuda"]]
+    if len(set(served)) != len(served):
+        fail(f"drivers_reference: quality_bench rows that serve different nets agree: "
+             f"{rows['cuda']}")
+    out["quality_bench"] = {"abs_db": diffs, "tolerance_db": QBENCH_REF_DB,
+                            "psnr_card": {r["provider"]: r["psnr_mean"] for r in rows["cuda"]},
+                            "seeded_nets": {",".join(p): [f"{n}_x{sc}" for n, sc in nets]
+                                            for p, nets, _cfg in QBENCH_GROUPS}}
+    a, b = losses["cuda"]["final_loss"], losses["cpu"]["final_loss"]
+    rel = abs(a - b) / abs(b)
+    moved = float(deltas["cpu"].norm())
+    upd_rel = float((deltas["cuda"] - deltas["cpu"]).norm()) / max(moved, 1e-30)
+    if rel > TRAIN_LOSS_RTOL or not moved > 0 or upd_rel > TRAIN_UPDATE_RTOL:
+        fail(f"drivers_reference: pretrain loss card {a} CPU {b}; update {moved}, "
+             f"card against CPU relative {upd_rel}")
+    out["pretrain"] = {"final_loss": [a, b], "rel": rel, "tolerance": TRAIN_LOSS_RTOL,
+                       "update_norm": moved, "update_rel": upd_rel,
+                       "update_tolerance": TRAIN_UPDATE_RTOL,
+                       "psnr_net": [losses["cuda"]["psnr_net"], losses["cpu"]["psnr_net"]]}
+    return out
+
+
 def self_dev_ms(e) -> float:
     """An op's own device milliseconds in ``key_averages()``, under either
     name the profiler has given it."""
@@ -3685,6 +4127,13 @@ def main() -> int:
         emit("dryrun", t0, **dry)
 
         t0 = time.time()
+        drv = drivers_phase(torch, K, tmp)
+        emit("drivers", t0, **drv)
+
+        t0 = time.time()
+        emit("drivers_reference", t0, **drivers_reference(torch, tmp))
+
+        t0 = time.time()
         held = {"main_path": main["held_against_plain"], "zssr": zssr["held_against_plain"],
                 "bench_path": bench["held_against_plain"],
                 "cli_path": cli["held_against_plain"],
@@ -3693,7 +4142,9 @@ def main() -> int:
                 "library": lib["held_against_plain"],
                 "subcommands": sub["held_against_plain"],
                 "mesh": mesh["held_against_plain"],
-                "webui": webui["held_against_plain"], "dryrun": dry["held_against_plain"]}
+                "webui": webui["held_against_plain"], "dryrun": dry["held_against_plain"],
+                "proof_200mp": drv["proof_200mp"]["held_against_plain"],
+                "quality_bench": drv["quality_bench"]["held_against_plain"]}
         shapes = time_kernel_shapes(torch, K, held)
         emit("kernel_shapes", t0, **shapes)
 
@@ -3732,7 +4183,9 @@ def main() -> int:
                                  "subcommands": sub["launches"][name],
                                  "mesh": mesh["launches"][name],
                                  "webui": webui["launches"][name],
-                                 "dryrun": dry["launches"][name]},
+                                 "dryrun": dry["launches"][name],
+                                 "proof_200mp": drv["proof_200mp"]["launches"][name],
+                                 "quality_bench": drv["quality_bench"]["launches"][name]},
             "max_abs_err": max(d["max_abs_err"],
                                *(h[name]["max_abs_err"] for h in held.values())),
             "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],

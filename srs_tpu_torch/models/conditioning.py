@@ -93,9 +93,14 @@ class CondPolish(nn.Module):
         # (F,) or (N, F) against NCHW feature maps
         gamma = gamma.reshape(-1, gamma.shape[-1], 1, 1)
         beta = beta.reshape(-1, beta.shape[-1], 1, 1)
-        # in place, each op rounded to ``dtype`` as the reference's: at the
-        # 100MP preset a map is 12 GB
-        h = F.relu(h.mul_(1.0 + gamma).add_(beta), inplace=True)
+        if h.requires_grad or gamma.requires_grad:
+            # training: autograd needs conv_in's output intact for the FiLM
+            # layer's gradient, so the same ops run out of place
+            h = F.relu(h * (1.0 + gamma) + beta)
+        else:
+            # in place, each op rounded to ``dtype`` as the reference's: at
+            # the 100MP preset a map is 12 GB
+            h = F.relu(h.mul_(1.0 + gamma).add_(beta), inplace=True)
         h = F.relu(self.conv_mid(h), inplace=True)
         return xf + self.conv_out(h).permute(0, 2, 3, 1).float() * 255.0
 

@@ -29,6 +29,7 @@ import numpy as np
 from ..io.image import load_image
 
 __all__ = [
+    "PhotoDataMissing", "missing_packages", "require_photo_paths",
     "photo_paths", "load_photos", "photo_mosaic",
     "texture_paths", "load_textures", "texture_mosaic",
     "eval_photo_paths", "load_eval_photos",
@@ -139,6 +140,33 @@ def _resolve(sources: List[Tuple[str, str]]) -> List[str]:
         if os.path.isfile(p):
             out.append(p)
     return out
+
+
+class PhotoDataMissing(RuntimeError):
+    """Photographs a driver needs are not installed; the message names the
+    packages that would ship them."""
+
+
+def missing_packages(sources: List[Tuple[str, str]]) -> List[str]:
+    """The packages of ``sources`` that are not installed, plus PIL where
+    a source is a JPEG (the port decodes only PNG without it), sorted."""
+    missing = {pkg for pkg, _ in sources if _package_dir(pkg) is None}
+    if any(rel.lower().endswith((".jpg", ".jpeg")) for _, rel in sources) \
+            and _package_dir("PIL") is None:
+        missing.add("PIL")
+    return sorted(missing)
+
+
+def require_photo_paths(what: str = "the training photographs") -> List[str]:
+    """:func:`photo_paths`, or :class:`PhotoDataMissing` naming the missing
+    packages when none is installed (a photo-bearing corpus mix or fit would
+    otherwise go on without a single photograph)."""
+    paths = photo_paths()
+    if not paths:
+        raise PhotoDataMissing(
+            f"{what}: no photo package is installed (missing "
+            f"{', '.join(missing_packages(PHOTO_SOURCES))})")
+    return paths
 
 
 def photo_paths() -> List[str]:

@@ -316,21 +316,28 @@ def save_checkpoint(params: Union[nn.Module, Mapping[str, torch.Tensor]], name: 
     return path
 
 
+def random_crops(corpus: torch.Tensor, batch: int, p: int, gen: torch.Generator
+                 ) -> torch.Tensor:
+    """[batch, p, p, 3] float32 crops of the corpus [n, H, W, 3] (uint8 or
+    float32) on its device: random images, then rows, then columns."""
+    dev = corpus.device
+    n_img, ch, cw, _ = corpus.shape
+    idx = torch.randint(0, n_img, (batch,), generator=gen, device=dev)
+    ys = torch.randint(0, ch - p + 1, (batch,), generator=gen, device=dev)
+    xs = torch.randint(0, cw - p + 1, (batch,), generator=gen, device=dev)
+    ar = torch.arange(p, device=dev)
+    return corpus[idx[:, None, None], (ys[:, None] + ar)[:, :, None],
+                  (xs[:, None] + ar)[:, None, :]].float()
+
+
 def _train_batch(corpus: torch.Tensor, batch: int, hp: int, gen: torch.Generator,
                  hr_grain: float) -> torch.Tensor:
     """One augmented HR batch [batch, hp, hp, 3] float32 from the
-    device-resident corpus: random images and crops, the width flip, the
+    device-resident corpus: :func:`random_crops`, then the width flip, the
     height flip and the transpose (the dihedral group), each with
     probability 1/2, then optional film grain."""
-    dev = corpus.device
-    kw = dict(generator=gen, device=dev)
-    n_img, ch, cw, _ = corpus.shape
-    idx = torch.randint(0, n_img, (batch,), **kw)
-    ys = torch.randint(0, ch - hp + 1, (batch,), **kw)
-    xs = torch.randint(0, cw - hp + 1, (batch,), **kw)
-    ar = torch.arange(hp, device=dev)
-    hr = corpus[idx[:, None, None], (ys[:, None] + ar)[:, :, None],
-                (xs[:, None] + ar)[:, None, :]].float()
+    kw = dict(generator=gen, device=corpus.device)
+    hr = random_crops(corpus, batch, hp, gen)
     flips = (torch.rand((3, batch), **kw) < 0.5).reshape(3, batch, 1, 1, 1)
     hr = torch.where(flips[0], hr.flip(2), hr)
     hr = torch.where(flips[1], hr.flip(1), hr)
@@ -378,6 +385,7 @@ def train_synthetic(
     init_from: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
     on_step: Optional[Callable[[int, Dict[str, torch.Tensor]], None]] = None,
+    dtype: str = "bfloat16",
 ) -> Tuple[Dict[str, torch.Tensor], float]:
     """Train a registry net on the procedural corpus (``corpus.py``), or on
     ``corpus`` ([n, H, W, 3], uint8 or float32), which is uploaded once.
@@ -391,9 +399,10 @@ def train_synthetic(
     mean loss)`` sees it there (:func:`_log_points`); ``on_step(step,
     metrics)`` sees every step's loss and gradient norm as device tensors.
     The net starts from :func:`init_params` with ``seed``, or from the
-    checkpoint under ``init_from``. Returns
-    (float32 state dict on the CPU, the last logged loss); with
-    ``checkpoint_dir`` the state dict is saved there too."""
+    checkpoint under ``init_from``. The convolutions run in ``dtype``
+    (float32 master weights either way). Returns (float32 state dict on
+    the CPU, the last logged loss); with ``checkpoint_dir`` the state dict
+    is saved there too."""
     from .corpus import make_corpus
     from .registry import build_model, init_params, load_checkpoint
 
@@ -411,7 +420,8 @@ def train_synthetic(
     n_chunks = max(steps // scan_chunk, 1)
     logged = set(_log_points(steps, scan_chunk))
     with torch.inference_mode(False), torch.enable_grad():
-        net, _ = build_model(model_name, scale, params, device=dev, master_weights=True)
+        net, _ = build_model(model_name, scale, params, dtype=dtype, device=dev,
+                             master_weights=True)
         net, optimizer = init_train_state(net, cosine_decay_schedule(lr, max(steps, 1)))
         gen = torch.Generator(dev).manual_seed(seed + 1)
         for chunk in range(n_chunks):

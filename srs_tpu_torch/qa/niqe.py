@@ -128,12 +128,18 @@ def image_features36(gray: torch.Tensor) -> torch.Tensor:
     return torch.cat([_scale_features(gray), _scale_features(_half_scale(gray))], dim=1)
 
 
-def _sharp(patches: torch.Tensor) -> torch.Tensor:
-    """Mean local contrast (the MSCN sigma field) of each [N, h, w] patch."""
-    g = patches.float()
+def _sigma_field(gray: torch.Tensor) -> torch.Tensor:
+    """Local contrast field of (..., H, W) grey images: the sigma of the
+    MSCN normalization (reference qa/niqe.py:152)."""
+    g = gray.float()
     mu = gaussian_blur(g, 7, 7.0 / 6.0)
     sigma_sq = gaussian_blur(g * g, 7, 7.0 / 6.0) - mu * mu
-    return torch.sqrt(torch.clamp(sigma_sq, min=0.0)).mean(dim=(-2, -1))
+    return torch.sqrt(torch.clamp(sigma_sq, min=0.0))
+
+
+def _sharp(patches: torch.Tensor) -> torch.Tensor:
+    """Mean local contrast (the MSCN sigma field) of each [N, h, w] patch."""
+    return _sigma_field(patches).mean(dim=(-2, -1))
 
 
 def niqe_features(image: torch.Tensor, patch: int = 96, select: float = 0.75) -> np.ndarray:

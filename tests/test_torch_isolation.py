@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of srs_tpu_torch (and
-chip_smoke.py) loads neither jax nor anything of srs_tpu, and the sources
-never name them in an import."""
+chip_smoke.py) loads neither jax nor anything of srs_tpu or of the
+reference's scripts/, and the sources never name them in an import."""
 
 import ast
 import os
@@ -20,7 +20,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax", "srs_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax", "srs_tpu",
+                                    "scripts"))
 print(f"{len(names)}|{','.join(bad)}")
 """
 
@@ -43,8 +44,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     # corpus and the photo harvest, commercial QA, the blending module and
     # the examples, the generator, the bench and the FLOP and trace
     # utilities, the device mesh (parallel/ and its six modules), the web
-    # UI (webui/, its pages) and utils/logging too
-    assert int(count) >= 77
+    # UI (webui/, its pages) and utils/logging too; and the drivers
+    # (drivers/, one module per reference script)
+    assert int(count) >= 94
     assert bad == "", f"imported: {bad}"
 
 
@@ -59,5 +61,5 @@ def test_no_import_statement_names_jax_or_the_reference(path):
             roots = [node.module.split(".")[0]]
         else:
             continue
-        assert not set(roots) & {"jax", "jaxlib", "flax", "orbax", "optax", "srs_tpu"}, (
-            path, roots)
+        assert not set(roots) & {"jax", "jaxlib", "flax", "orbax", "optax", "srs_tpu",
+                                 "scripts"}, (path, roots)
