@@ -14,12 +14,12 @@ in order, each printing one JSON line with its seconds:
    versions on the card, at the main path's shapes, at odd and tiny
    sizes, and at the edges of their row-streaming blocks, with their
    times beside the bound and a PyTorch library call;
-4. reference: the whole pipeline on small inputs, on the card and on the
-   CPU (plain versions): with routing, selection and QA off, TIFFs within
-   1 LSB; with them on (the bench flags), the same routing decision and
-   ladder models, the probe's gain and alpha within their bfloat16
-   tolerances, TIFFs within 1 LSB and QA values within the CPU tests'
-   tolerances;
+4. reference: the whole pipeline on small inputs with seeded ``edsr_m``
+   (the store hidden), on the card and on the CPU (plain versions): with
+   routing, selection and QA off, TIFFs within 1 LSB; with them on (the
+   bench flags), the same routing decision and ladder models, the probe's
+   gain and alpha within their bfloat16 tolerances, TIFFs within 1 LSB
+   and QA values within the CPU tests' tolerances;
 5. main path: ``SuperResolutionPipeline.process()`` for a 720x1280 input
    to the 100MP preset (12245x6887) with provider ``quality`` and
    ``edsr_xl`` at its full width (16 blocks, 128 features) on a [3, 3]
@@ -30,34 +30,52 @@ in order, each printing one JSON line with its seconds:
    bands), and once with the launch counts reset, which must show both
    kernels;
 6. bench path: the same input through ``bench.py:69-83``'s configuration
-   (routing with the SR-gain probe, per-scale selection from a ledger the
-   smoke writes, QA with the full-resolution panel and the report file),
+   with seeded ``edsr_xl`` handed in (routing with the SR-gain probe,
+   per-scale selection from the store's EVAL.json, QA with the store's
+   LPIPS features, the full-resolution panel and the report file),
    warmed up with every launch held against the plain version, then run
    with the launch counts reset;
-7. cli_path: the command line, ``srs_tpu_torch.cli.main`` in this
+7. packaged: the same configuration with nothing handed in, so the
+   store (``srs_tpu_torch/models/checkpoints/``) serves its trained nets,
+   as the reference serves its packaged checkpoints: every store file
+   against MANIFEST.json's sha256, the default path's reads timed; a
+   warm-up with every launch held against the plain version, then a run
+   with the counts reset: selection's pick from the store's EVAL.json
+   (``edsr_xl`` at each x3 step), every served net trained and no IBP,
+   the probe's gain and alpha, QA's ``lpips_vgg`` and ``lpips_alex`` from
+   the store's features, MP/s, stage times and peak memory beside the
+   seeded bench path's; then card against CPU on a small input (96x112
+   -> 1008x864) in float32: TIFFs within 1 LSB, the probe within its
+   bfloat16 tolerances, the report within the CPU tests' tolerances;
+8. cli_path: the command line, ``srs_tpu_torch.cli.main`` in this
    process, as a user runs ``python -m srs_tpu_torch process in.png
    out.tiff --target 100MP --blend multi_band --seam-repair
-   --color-correction --content-aware`` with no weights (``edsr_xl`` at
-   full width untrained, so 8 IBP steps run): the 720x1280 input written
-   as PNG by the port's encoder and decoded back exactly; a warm-up with
-   every K1/K2 launch held against the plain version, then a run with the
-   launch counts reset; its MP/s, stage times, peak memory, IBP seconds,
-   seam and box counts and launches by shape; then ``python3 -m
-   srs_tpu_torch process`` once in a subprocess at 1024x576;
-8. other_blends: ``weighted``, ``feather``, ``gradient_domain`` and
-   ``poisson`` through ``process()`` at full width, QA off, each with its
-   blending seconds and the peak memory of the blend;
-9. blend_reference: card against CPU on small inputs, untrained nets with
-   IBP: each of the six blends, and ``multi_band`` with seam repair,
+   --color-correction --content-aware`` with the store hidden in this
+   process (``edsr_xl`` at full width untrained, so 8 IBP steps run):
+   the 720x1280 input written as PNG by the port's encoder and decoded
+   back exactly; a warm-up with every K1/K2 launch held against the plain
+   version, then a run with the launch counts reset; its MP/s, stage
+   times, peak memory, IBP seconds, seam and box counts and launches by
+   shape; then ``python3 -m
+   srs_tpu_torch process`` once in a subprocess at 1024x576, which serves
+   the store's nets (no untrained net named on its standard error);
+9. other_blends: ``weighted``, ``feather``, ``gradient_domain`` and
+   ``poisson`` through ``process()`` at full width, QA off, nothing handed
+   in (the store's nets), each with its blending seconds and the peak
+   memory of the blend;
+10. blend_reference: card against CPU on small inputs, untrained nets with
+   IBP (the store hidden): each of the six blends, and ``multi_band`` with
+   seam repair,
    colour correction and content-aware seams, TIFFs within 1 LSB; and
    seam detection and repair of a scene with medium and high seams, the
    same seams and canvases within 1e-3;
-10. providers: ``process()`` at full width (the 720x1280 input to the
+11. providers: ``process()`` at full width (the 720x1280 input to the
    100MP preset, QA, routing and selection off, weights seeded) for eight
-   serving cases: ``fusion`` with the packaged x3 members (a FUSION.json
-   the smoke writes), ``quality`` with the dihedral self-ensemble,
+   serving cases: ``fusion`` with the x3 members of the store's
+   FUSION.json, ``quality`` with the dihedral self-ensemble,
    ``quality`` with ``prompt="food"`` and a seeded conditioned polish,
-   ``hybrid`` with an untrained ``edsr_xl`` and a seeded ``espcn_polish``,
+   ``hybrid`` with an untrained ``edsr_xl`` (the store hidden) and a
+   seeded ``espcn_polish``,
    ``fast`` with a seeded ``espcn``, ``rcan`` as the quality net, and the
    reference's remote names ``seedream`` (the quality path's nets, within
    1 LSB of its TIFF) and ``veimagex`` (the fast case's, within 1 LSB of
@@ -68,10 +86,10 @@ in order, each printing one JSON line with its seconds:
    show its members with 8 passes for each "+" member, the ensemble 8
    passes a step, and the prompt's pixels must differ from the quality
    path's;
-11. provider_reference: the eight cases on a small input (48x64 -> 192x144,
+12. provider_reference: the eight cases on a small input (48x64 -> 192x144,
    one x3 step), card against CPU in float32: TIFFs within 1 LSB and the
    same nets and passes; and fusion in bfloat16, held to a PSNR floor;
-12. jobs: the job layer at full width on the quality path's flags:
+13. jobs: the job layer at full width on the quality path's flags:
    ``degrade`` (a real CUDA OOM after the real net in every quality-net
    call: retries, then degradation to ``fast`` with a seeded ``espcn`` at
    tile 256 / overlap 16 on the ladder for x0.7 of the scale, still
@@ -85,7 +103,7 @@ in order, each printing one JSON line with its seconds:
    the ENTERPRISE job first, each within 1 LSB; beside three back-to-back
    calls). Each case's runs hold every K1/K2 launch against the plain
    version, and a run with the counts reset shows both kernels;
-13. zssr: ``process(provider="zssr")`` at full width on the quality
+14. zssr: ``process(provider="zssr")`` at full width on the quality
    path's flags: seeded ``edsr_xl`` handed in as trained, so
    ``zssr_prepare`` tunes a copy of it on the input for 150 steps (batch
    8, patch 48, lr 1e-4), which then serves both x3 steps; a warm-up with
@@ -95,7 +113,7 @@ in order, each printing one JSON line with its seconds:
    stage, MP/s and peak memory; the tuned weights must differ from the
    seeded ones, the seeded ones must be unchanged, and the TIFF must
    differ from the main path's;
-14. train: ``train_synthetic("edsr_xl", 3)`` for 200 steps at batch 32,
+15. train: ``train_synthetic("edsr_xl", 3)`` for 200 steps at batch 32,
    patch 48 on a 96-image, 256-px corpus: corpus seconds, steps/s,
    TFLOP/s, first and last chunk loss (it must fall), peak memory; the
    state dict saved in a temporary checkpoint directory reloads, a
@@ -103,11 +121,11 @@ in order, each printing one JSON line with its seconds:
    call, the TIFF equal to one served with the weights handed in), and
    ``python3 -m srs_tpu_torch train --synthetic`` runs once in a
    subprocess;
-15. train_reference: the trainer card against CPU on small inputs,
+16. train_reference: the trainer card against CPU on small inputs,
    float32 with TF32 off: five zssr steps (espcn) and five ``train_step``
    steps (edsr_m) with per-step losses within a relative 1e-3, and zssr
    in bfloat16 with the tuned nets' outputs above 40 dB PSNR;
-16. library: the library API at full size. ``process(roi_regions=...)``
+17. library: the library API at full size. ``process(roi_regions=...)``
    on the bench path's pipeline (a text, product, face and brand region
    in input coordinates): the commercial keys and score, and the QA
    stage's seconds beside the bench path's; a two-job ``process_batch``
@@ -123,11 +141,11 @@ in order, each printing one JSON line with its seconds:
    and ``python3 -m srs_tpu_torch.examples`` once in a subprocess. Every
    run that launches a kernel is first run with each launch held against
    the plain version, then timed with the counts reset;
-17. library_reference: the library API card against CPU at the CPU
+18. library_reference: the library API card against CPU at the CPU
    tests' sizes (float32, TF32 off): the five fusions, the multigrid and
    Jacobi clones in each mode, split and merge, Canny, the commercial
    metrics with ROIs and a bicubic ``process(roi_regions=...)``;
-18. subcommands: the operator subcommands on the bench configuration.
+19. subcommands: the operator subcommands on the bench configuration.
    ``python3 -m srs_tpu_torch bench`` once in a subprocess (exit 0, one
    JSON line, no row in the repository's BENCH_LOCAL.md); then the port's
    bench (``srs_tpu_torch/bench.py``: the reference's ``render_photo``
@@ -136,9 +154,10 @@ in order, each printing one JSON line with its seconds:
    version, then its timed ``process()`` with the counts reset: MP/s,
    ``mfu_pct`` and ``chip_kind`` (``utils/flops.py``), the stage times;
    ``info`` (backend cuda, the card among its devices); ``warmup`` at its
-   defaults; ``process --profile DIR`` on the bench input, whose trace
-   must name K1's and K2's device kernels;
-19. generate: generation at the packaged generator's width (base 64,
+   defaults, listing the store's trained scales; ``process --profile DIR``
+   on the bench input, whose trace must name K1's and K2's device kernels.
+   All of them serve the store's nets;
+20. generate: generation at the packaged generator's width (base 64,
    depth 2, 128 px): ``train_ark`` on the card at batch 64 on a
    64-image class corpus, 200 steps (steps/s, TFLOP/s beside the bf16
    peak, first and last chunk loss, which must fall, peak memory; the
@@ -150,13 +169,14 @@ in order, each printing one JSON line with its seconds:
    and the refinement apart, its tile count, peak memory, the same seed
    within 1 LSB, another class moving it well above that reproduction
    noise;
-20. generate_reference: the generator card against CPU at the CPU tests'
+21. generate_reference: the generator card against CPU at the CPU tests'
    sizes, float32 with TF32 off: the UNet, ``sample_ark`` and
    ``refine_ark`` with the draws handed in, one batch's loss and
    gradients, each within the CPU tests' tolerances; the bfloat16 sampler
    above a PSNR floor;
-21. mesh: ``bench.py:69-83``'s configuration (the bench path's flags,
-   ledger and seeded ``edsr_xl``) with ``mesh_shape={"data": 2, "space":
+22. mesh: ``bench.py:69-83``'s configuration (the bench path's flags,
+   the store's ledger and seeded ``edsr_xl``) with ``mesh_shape={"data":
+   2, "space":
    2}`` on a virtual mesh of four shards on ``cuda:0``, handed in as
    ``pipe.dispatcher``: the six tiles split over ``data`` (3 a shard), the
    8064x11520 canvas over ``space`` (own 3456 rows, band 4608), the
@@ -167,15 +187,16 @@ in order, each printing one JSON line with its seconds:
    1 LSB of the bench path's on all but 1e-3 of samples, no more memory
    left allocated than the bench path left; and ``python3 -m srs_tpu_torch
    process ... --mesh data=2`` exits non-zero with no output on one card;
-22. mesh_reference: the 2x2 mesh at small size (80x96 -> 864x720), card
+23. mesh_reference: the 2x2 mesh at small size (80x96 -> 864x720), card
    (virtual mesh) against CPU (the CPU repeated) in float32 with TF32 off:
    the sharded blend on both, TIFFs within 1 LSB;
-23. webui: the web UI's headless path. The session at its defaults and
+24. webui: the web UI's headless path. The session at its defaults and
    ``extract_image_info`` of the input array, then the Monitor page's
    worker (``monitor_page.start_worker``) on the Configure page's state:
-   the bench configuration at a block of 1024, no weights (untrained nets,
-   IBP). A warm-up with every K1/K2 launch held against the plain
-   version, then a run with the counts reset: ``done``, a 12245x6887 TIFF,
+   the bench configuration at a block of 1024, nothing handed in (the
+   store's trained nets and LPIPS features, no IBP). A warm-up with
+   every K1/K2 launch held against the plain version, then a run with
+   the counts reset: ``done``, a 12245x6887 TIFF,
    the bench path's report keys, the pipeline's records in the log
    buffer, peak memory under 40 GB, and the TIFF within 1 LSB of a direct
    ``process()`` with the same ``PipelineConfig``; MP/s, tiles, ladder,
@@ -185,22 +206,24 @@ in order, each printing one JSON line with its seconds:
    LSB (after the same ``convert_profile``); a JPEG export without PIL
    raises; ``python3 -m srs_tpu_torch webui`` without Streamlit exits
    non-zero;
-24. webui_reference: the worker's job at small size (60x80 -> 160x120,
-   tile 64, QA on), card against CPU with TF32 off: TIFFs within 1 LSB;
-25. sharded_train: ``parallel/train.sharded_train_step`` on ``edsr_xl`` x3
+25. webui_reference: the worker's job at small size (60x80 -> 160x120,
+   tile 64, QA on, untrained nets with the store hidden), card against
+   CPU with TF32 off: TIFFs within 1 LSB;
+26. sharded_train: ``parallel/train.sharded_train_step`` on ``edsr_xl`` x3
    at full width, batch 32, patch 48, on a data=2, space=2, model=2
    virtual mesh of ``cuda:0``, three steps against three unsharded
    ``train_step`` steps from the same weights, float32 with TF32 off:
    step 1's gradients within 1e-3 of their largest entry, the losses
    within relative 1e-3; steps/s of both and the halo bytes;
-26. sharded_train_reference: two sharded steps of ``edsr_m`` x2 on the
+27. sharded_train_reference: two sharded steps of ``edsr_m`` x2 on the
    same mesh shape, card against CPU: losses within relative 1e-3;
-27. dryrun: ``parallel/dryrun.dryrun_multichip(8)`` on a virtual mesh of
+28. dryrun: ``parallel/dryrun.dryrun_multichip(8)`` on a virtual mesh of
    ``cuda:0``, once with every K1/K2 launch held against the plain
    version, then with the counts reset;
-28. drivers: the drivers of ``srs_tpu_torch/drivers/``. ``proof_200mp``
-   at the 200MP preset at 16 bits (17320x9742 from the 720x1280 input on
-   the [3, 4] ladder, 6 tiles of 512 px to 6144 px): once as a
+29. drivers: the drivers of ``srs_tpu_torch/drivers/``. ``proof_200mp``
+   on the store's nets at the 200MP preset at 16 bits (17320x9742 from
+   the 720x1280 input, which routing sends to ``edsr_l_robust`` on the
+   [2, 2, 3] ladder, 6 tiles of 512 px to 6144 px): once as a
    subprocess (cold), then in this process with every K1/K2 launch held
    against the plain version ([6,6144^2,3] among them), then timed with
    the counts reset: ``PROOF OK``, one SR attempt, no degradation, peak
@@ -211,19 +234,21 @@ in order, each printing one JSON line with its seconds:
    into a temporary directory (``pretrain --only edsr_xl_x3 --mix proc``,
    ``train_polish``, ``train_cond``, which must move the FiLM layer,
    ``train_lpips``, ``fit_qa_models --only lpips``, ``train_ark``): finite
-   losses, each saved file reloading equal; ``reeval`` on pretrain's net
-   (its PSNR within 1e-3 dB of pretrain's) and ``eval_ark`` on the
+   losses, each saved file reloading equal; ``reeval --only edsr_xl_x3``
+   on pretrain's net (its PSNR within 1e-3 dB of pretrain's) and
+   ``eval_ark`` on the
    generator just trained; and the photo-bound drivers (``photo_eval``,
    ``routed_panel``, ``cond_panel``, ``fit_fusion``, the full
    ``fit_qa_models``, quality_bench's photo row) raise
    ``PhotoDataMissing`` naming a missing package;
-29. drivers_reference: card against CPU at a reduced size: the proof at
-   32x18 -> 416x234 (still [3, 4]) within 16 in 16-bit units,
-   ``quality_bench --n 1 --size 192`` with seeded nets behind every row,
-   each row within 0.05 dB and no two alike, and ``pretrain`` 3 steps of
+30. drivers_reference: card against CPU at a reduced size (the store
+   hidden): the proof at 32x18 -> 416x234 (still [3, 4]) within 16 in
+   16-bit units, ``quality_bench --n 1 --size 192`` with seeded nets
+   behind every row, each row within 0.05 dB and no two alike, and
+   ``pretrain`` 3 steps of
    a seeded espcn x2 in float32 with TF32 off on the same batches, the
    loss within relative 1e-3 and the parameters' change within 1e-2;
-30. kernel_shapes: K1 and K2 timed at every distinct (input, output)
+31. kernel_shapes: K1 and K2 timed at every distinct (input, output)
    shape that the warm-up runs launched, each with its launches per
    path, bound and share of the bound.
 
@@ -236,7 +261,7 @@ share, device launches a step and time by kernel and op; and the
 generator's training step, 50-step sample and refinement chunk at the
 packaged width, likewise.
 Then it prints a ``done`` line with the total seconds, the kernels' JSON
-line (each kernel's entry with its ``shapes`` of phase 30), the ``nvidia-smi``
+line (each kernel's entry with its ``shapes`` of phase 31), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Without a CUDA card, or without the port
 beside it, it exits with code 2 and prints no result. Outputs go to a
@@ -320,26 +345,9 @@ PYR_DOWN_EDGE_CASES = [
 MAIN_H, MAIN_W = 720, 1280
 MAIN_OUT = (12245, 6887)  # (width, height) of the 100MP preset at 16:9
 
-# The bench path's ledger: photo_panel.mean_delta at x3 of the quality
-# candidates, copied from srs_tpu/models/checkpoints/EVAL.json (that
-# directory is not copied to the card). Only edsr_xl has weights here, so
-# selection serves it, as it does on the packaged ledger.
-BENCH_LEDGER = {
-    "edsr_xl_x3": {"photo_panel": {"mean_delta": 0.971}},
-    "edsr_l_x3": {"photo_panel": {"mean_delta": 0.955}},
-    "espcn_x3": {"photo_panel": {"mean_delta": 0.604}},
-    "edsr_m_x3": {"photo_panel": {"mean_delta": 0.535}},
-    "rcan_x3": {"photo_panel": {"mean_delta": 0.424}},
-}
-# The fusion provider's x3 entry, copied from
-# srs_tpu/models/checkpoints/FUSION.json (not copied to the card).
-FUSION_X3 = {
-    "members": ["edsr_xl+", "edsr_l+", "edsr_xl", "edsr_l", "rcan", "edsr_m", "espcn",
-                "bicubic"],
-    "weights": [1.3050431994500786, -0.25185268609706596, 0.023280029149568483,
-                0.021172885707446146, -0.04115265343518079, -0.022893618015028455,
-                -0.09080329161565738, 0.05720613485583925],
-}
+# The store's files the default path reads (srs_tpu_torch/models/
+# checkpoints/): the x3 net that selection serves, and the LPIPS features.
+PACKAGED_READS = ("edsr_xl_x3.pt", "lpips_vgg.pt", "lpips_alex.pt")
 # Card against CPU for the fusion case in bfloat16 (weights up to 1.31 in
 # magnitude scale each member's bf16 difference between cuDNN and the
 # CPU): PSNR between the two TIFFs, measured near 69 dB on an H100; the
@@ -780,6 +788,23 @@ def fast_weights() -> dict:
     return {("espcn", s): seeded_params("espcn", s, seed=40 + s) for s in (2, 3, 4)}
 
 
+@contextlib.contextmanager
+def store_masked(tmp: str):
+    """While open, the port's store of trained weights is hidden in this
+    process (an empty directory in its place), as the CPU tests hide it:
+    every net untrained unless handed in, LPIPS on seeded features; the
+    packaged ledgers stay. Phases built on seeded or untrained nets run
+    so."""
+    from srs_tpu_torch.models import registry
+
+    saved = registry.PACKAGED_CHECKPOINT_DIR
+    registry.PACKAGED_CHECKPOINT_DIR = os.path.join(tmp, "no_store")
+    try:
+        yield
+    finally:
+        registry.PACKAGED_CHECKPOINT_DIR = saved
+
+
 # The full-width quality path's configuration, and the flags that turn
 # routing, selection and QA off (the main path, the providers and the
 # job layer's cases run with them).
@@ -872,14 +897,11 @@ def main_path(torch, K, tmp: str, image: np.ndarray):
 
 
 def bench_path(torch, K, tmp: str, image: np.ndarray):
-    """``bench.py:69-83``'s configuration: routing and the SR-gain probe,
-    per-scale selection from a ledger written here, QA and its report."""
-    ledger = os.path.join(tmp, "ledger")
-    os.makedirs(ledger, exist_ok=True)
-    with open(os.path.join(ledger, "EVAL.json"), "w") as f:
-        json.dump(BENCH_LEDGER, f)
-    nums, pipe, res, path = drive_path(torch, K, tmp, "bench_path", image,
-                                       checkpoint_dir=ledger)
+    """``bench.py:69-83``'s configuration with seeded ``edsr_xl`` handed in:
+    routing and the SR-gain probe, per-scale selection from the store's
+    EVAL.json (the handed-in net is the trained x3 candidate it ranks
+    first), QA with the store's LPIPS features and its report."""
+    nums, pipe, res, path = drive_path(torch, K, tmp, "bench_path", image)
     cfg, info = pipe.config, pipe.last_run_info
     if not (cfg.auto_route and cfg.per_scale_selection and cfg.enable_qa):
         fail("bench path: routing, selection and QA must be on")
@@ -893,8 +915,8 @@ def bench_path(torch, K, tmp: str, image: np.ndarray):
     bad = [k for k in REPORT_KEYS if not np.isfinite(report.get(k, float("nan")))]
     if bad or report.get("fullres_crops", 0) <= 0:
         fail(f"bench path: report values missing or not finite: {bad}")
-    # NIQE and BRISQUE come from the packaged models, read by path, and
-    # not from their closed forms.
+    # NIQE and BRISQUE come from the packaged models (the port's copies in
+    # srs_tpu_torch/qa/data), not from their closed forms.
     from srs_tpu_torch.qa.niqe import DATA_DIR, brisque_score, niqe_score
 
     missing = [f for f in ("niqe_pristine.npz", "brisque_model.npz", "lpips_calib.json")
@@ -910,13 +932,153 @@ def bench_path(torch, K, tmp: str, image: np.ndarray):
         fail("bench path: no _qa_report.json beside the output")
     if "quality_assessment" not in res.stage_times:
         fail("bench path: no quality_assessment stage")
+    lpips_sources = pipe.quality_module._lpips.sources
+    if lpips_sources != {"vgg": "store", "alex": "store"}:
+        fail(f"bench path: LPIPS features from {lpips_sources}, not the store")
     nums.update(
         routing=routing, provider=info["provider"], models=info["models"],
         sr_gain_alpha=info["sr_gain_alpha"], quality_score=res.quality_score,
-        packaged_scores_of_input=packaged,
+        packaged_scores_of_input=packaged, lpips_sources=lpips_sources,
         report={k: v for k, v in report.items()},
     )
     return nums, pipe
+
+
+@contextlib.contextmanager
+def ibp_calls():
+    """While open, each back-projection call (``sr_module.back_project``)
+    appends to the list it yields."""
+    import srs_tpu_torch.models.sr_module as sr_module
+
+    calls: list = []
+    real = sr_module.back_project
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    sr_module.back_project = counted
+    try:
+        yield calls
+    finally:
+        sr_module.back_project = real
+
+
+def store_check(torch) -> dict:
+    """The store as the card's copy holds it: every file of MANIFEST.json
+    present with its bytes and sha256; then the default path's reads
+    (``PACKAGED_READS``, each checked against the manifest and loaded)
+    timed from cold."""
+    import hashlib
+
+    from srs_tpu_torch.models import registry
+
+    store = registry.PACKAGED_CHECKPOINT_DIR
+    manifest = registry.store_manifest()
+    if not manifest or any(f not in manifest for f in PACKAGED_READS + ("EVAL.json",
+                                                                       "FUSION.json")):
+        fail(f"packaged: the store at {store} lists {sorted(manifest)}")
+    t0 = time.time()
+    bad = []
+    for fname, entry in sorted(manifest.items()):
+        path = os.path.join(store, fname)
+        h = hashlib.sha256()
+        with open(path, "rb") as f:
+            for block in iter(lambda: f.read(1 << 20), b""):
+                h.update(block)
+        if os.path.getsize(path) != entry["bytes"] or h.hexdigest() != entry["sha256"]:
+            bad.append(fname)
+    if bad:
+        fail(f"packaged: store files differ from MANIFEST.json: {bad}")
+    sha_s = time.time() - t0
+    registry.clear_param_cache()
+    load_s = {}
+    for fname in PACKAGED_READS:
+        t0 = time.time()
+        registry.load_packaged(fname)
+        load_s[fname] = time.time() - t0
+    return {"files": len(manifest), "store_bytes": sum(e["bytes"] for e in manifest.values()),
+            "sha256_all_s": sha_s, "load_s": load_s, "load_total_s": sum(load_s.values())}
+
+
+def packaged_phase(torch, K, tmp: str, image: np.ndarray, bench_nums: dict) -> dict:
+    """Phase 7: ``bench.py:69-83``'s configuration with nothing handed in (no
+    weights, ledger or LPIPS parameters): the store's trained nets. The
+    store's files against MANIFEST.json and its load seconds; a warm-up
+    with every K1/K2 launch held against the plain version, then a run
+    with the counts reset. Selection must serve the store's EVAL.json
+    pick (edsr_xl at each x3 step), every served net trained with no IBP,
+    the probe's gain and alpha recorded, and QA's LPIPS from the store's
+    features. Then card against CPU on a small input (96x112 -> 1008x864),
+    float32 with TF32 off: the same route and models, the probe within
+    its bfloat16 tolerances, the TIFF within 1 LSB, the report within the
+    CPU tests' tolerances."""
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.models.selection import panel_best_model
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+
+    store = store_check(torch)
+    with ibp_calls() as ibp:
+        nums, pipe, res, _path = drive_path(torch, K, tmp, "packaged", image, weights={})
+    cfg, info, sr = pipe.config, pipe.last_run_info, pipe.sr_module
+    if not (cfg.auto_route and cfg.per_scale_selection and cfg.enable_qa) or cfg.checkpoint_dir:
+        fail(f"packaged: not the bench configuration: {cfg}")
+    picks = [panel_best_model(s, cfg.quality_model, sr.is_trained) for s in info["ladder"]]
+    if info["models"] != picks or picks != ["edsr_xl", "edsr_xl"]:
+        fail(f"packaged: served {info['models']}, selection from the store picks {picks}")
+    untrained = [m for m, s in zip(info["models"], info["ladder"]) if not sr.is_trained(m, s)]
+    if untrained or ibp:
+        fail(f"packaged: untrained nets {untrained}, {len(ibp)} IBP calls")
+    routing = info["routing"]
+    if routing["errors"] or routing["degradation"] is None or routing["sr_gain"] is None \
+            or routing["alpha"] is None:
+        fail(f"packaged: routing or the probe did not run cleanly: {routing}")
+    report = res.quality_report or {}
+    lpips_sources = pipe.quality_module._lpips.sources
+    bad = [k for k in REPORT_KEYS if not np.isfinite(report.get(k, float("nan")))]
+    if bad or lpips_sources != {"vgg": "store", "alex": "store"}:
+        fail(f"packaged: report values {bad} not finite, LPIPS from {lpips_sources}")
+
+    # card against CPU on a small input, the same configuration
+    torch.backends.cudnn.allow_tf32 = False
+    small = synthetic_image(96, 112, seed=4)
+    got = {}
+    for device in ("cuda", "cpu"):
+        path = os.path.join(tmp, f"packaged_small_{device}.tiff")
+        p = SuperResolutionPipeline(PipelineConfig(
+            block_size=64, target_resolution="1008x864", ibp_steps=4,
+            compute_dtype="float32", device=device))
+        t0 = time.time()
+        r = p.process(small, path)
+        if not r.success:
+            fail(f"packaged: small run on {device} failed: {r.error_message}")
+        got[device] = (read_tiff(path).astype(np.int16), p.last_run_info, r.quality_report,
+                       time.time() - t0)
+        os.remove(path)
+    torch.backends.cudnn.allow_tf32 = True
+    diff = np.abs(got["cuda"][0] - got["cpu"][0])
+    if got["cuda"][0].shape != (864, 1008, 3) or diff.max() > 1:
+        fail(f"packaged: card and CPU disagree on the small input: shape "
+             f"{got['cuda'][0].shape}, max diff {diff.max()} LSB")
+    small_cmp = compare_bench_runs(*got["cuda"][1:3], *got["cpu"][1:3])
+    seeded_report = bench_nums["report"]
+    nums.update(
+        store=store, provider=info["provider"], ladder=info["ladder"], models=info["models"],
+        step_members=info["step_members"], ibp_calls=len(ibp), routing=routing,
+        sr_gain_alpha=info["sr_gain_alpha"], quality_score=res.quality_score,
+        lpips_sources=lpips_sources, report=dict(report),
+        seeded_bench_path={"mp_per_s": bench_nums["mp_per_s"],
+                           "peak_mem_gb": bench_nums["peak_mem_gb"],
+                           "stage_times": bench_nums["stage_times"],
+                           "routing": {k: bench_nums["routing"][k]
+                                       for k in ("sr_gain", "alpha", "provider")},
+                           "quality_score": bench_nums["quality_score"],
+                           "report": {k: seeded_report[k] for k in REPORT_KEYS}},
+        card_against_cpu={"max_lsb": int(diff.max()),
+                          "frac_differing": float((diff > 0).mean()),
+                          "seconds": [got["cuda"][3], got["cpu"][3]], **small_cmp},
+    )
+    return nums
 
 
 # The command line's full-width run: the reference's ``process`` flags
@@ -984,7 +1146,7 @@ def cv2_version():
 
 
 def cli_path(torch, K, tmp: str, image: np.ndarray) -> dict:
-    """The command line at full width on the card (module docstring, phase 7)."""
+    """The command line at full width on the card (module docstring, phase 8)."""
     from srs_tpu_torch import cli
     from srs_tpu_torch.io.image import load_image, save_image
     from srs_tpu_torch.io.native import read_tiff
@@ -1061,6 +1223,8 @@ def cli_path(torch, K, tmp: str, image: np.ndarray) -> dict:
              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
     if read_tiff(small).shape != (576, 1024, 3):
         fail(f"cli_path: the subprocess wrote {read_tiff(small).shape}")
+    if "untrained net" in proc.stderr:  # the store's nets serve it
+        fail(f"cli_path: the subprocess served an untrained net: {proc.stderr[-2000:]}")
     return {
         "argv": argv,
         "png_decode_s": decode_s,
@@ -1203,18 +1367,24 @@ def blend_reference(torch, tmp: str) -> dict:
     return out
 
 
-def provider_cases(ledger: str) -> dict:
+# The serving case that needs an untrained quality net (the polish runs
+# only after one): it runs with the store hidden (``store_masked``).
+UNTRAINED_CASES = ("hybrid",)
+
+
+def provider_cases() -> dict:
     """The eight serving cases: name -> (config flags, weights, prompt).
-    Every fusion member is seeded at x3, edsr_xl at x2/x3/x4 (the ladder's
-    nets); the reference's remote names ``seedream`` and ``veimagex`` serve
-    the quality path's and the fast case's nets."""
+    Every fusion member of the store's FUSION.json is seeded at x3,
+    edsr_xl at x2/x3/x4 (the ladder's nets); the reference's remote names
+    ``seedream`` and ``veimagex`` serve the quality path's and the fast
+    case's nets."""
     from srs_tpu_torch.models.registry import seeded_params
 
     xl = xl_weights()
     members = {(m, 3): seeded_params(m, 3, seed=20 + i)
                for i, m in enumerate(("edsr_l", "rcan", "edsr_m", "espcn"))}
     return {
-        "fusion": (dict(provider="fusion", checkpoint_dir=ledger), {**xl, **members}, None),
+        "fusion": (dict(provider="fusion"), {**xl, **members}, None),
         "self_ensemble": (dict(self_ensemble=True), xl, None),
         "prompt": ({}, {**xl, ("cond_polish", 1): seeded_params("cond_polish", 1, seed=30)},
                    "food"),
@@ -1230,35 +1400,31 @@ def provider_cases(ledger: str) -> dict:
 
 
 def expected_members(name: str) -> list:
-    """The [net, passes] each ladder step of a case must report."""
+    """The [net, passes] each ladder step of a case must report (fusion's
+    members from the store's FUSION.json at x3)."""
+    from srs_tpu_torch.models.fusion import load_fusion
+
     fused = [[m.rstrip("+"), 8 if m.endswith("+") else 1]
-             for m in FUSION_X3["members"] if m != "bicubic"]
+             for m in load_fusion(3)[0] if m != "bicubic"]
     return {"fusion": fused, "self_ensemble": [["edsr_xl", 8]], "prompt": [["edsr_xl", 1]],
             "hybrid": [["edsr_xl", 1], ["espcn_polish", 1]], "fast": [["espcn", 1]],
             "rcan": [["rcan", 1]], "seedream": [["edsr_xl", 1]],
             "veimagex": [["espcn", 1]]}[name]
 
 
-def write_fusion_ledger(tmp: str) -> str:
-    ledger = os.path.join(tmp, "fusion_ledger")
-    os.makedirs(ledger, exist_ok=True)
-    with open(os.path.join(ledger, "FUSION.json"), "w") as f:
-        json.dump({"x3": FUSION_X3}, f)
-    return ledger
-
-
 def providers(torch, K, tmp: str, image: np.ndarray, quality_tiff: str):
-    """The eight serving cases at full width (module docstring, phase 10).
+    """The eight serving cases at full width (module docstring, phase 11).
     ``seedream`` must land within 1 LSB of the quality path's TIFF (the
     same nets) and ``veimagex`` of the fast case's. Returns (numbers,
     pipeline) per case."""
     from srs_tpu_torch.io.native import read_tiff
 
     out, pipes = {}, {}
-    for name, (flags, weights, prompt) in provider_cases(write_fusion_ledger(tmp)).items():
-        nums, pipe, _res, path = drive_path(torch, K, tmp, f"provider_{name}", image,
-                                            weights=weights, prompt=prompt,
-                                            **{**QUALITY_FLAGS, **flags})
+    for name, (flags, weights, prompt) in provider_cases().items():
+        with (store_masked(tmp) if name in UNTRAINED_CASES else contextlib.nullcontext()):
+            nums, pipe, _res, path = drive_path(torch, K, tmp, f"provider_{name}", image,
+                                                weights=weights, prompt=prompt,
+                                                **{**QUALITY_FLAGS, **flags})
         info = pipe.last_run_info
         want = expected_members(name)
         if info["step_members"] != [want, want]:
@@ -1298,12 +1464,12 @@ def providers(torch, K, tmp: str, image: np.ndarray, quality_tiff: str):
 
 def provider_reference(torch, tmp: str) -> dict:
     """The six cases on a small input, card against CPU (module docstring,
-    phase 11)."""
+    phase 12)."""
     from srs_tpu_torch.io.native import read_tiff
     from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
 
     image = synthetic_image(48, 64, seed=6)
-    cases = provider_cases(write_fusion_ledger(tmp))
+    cases = provider_cases()
     runs = [(name, "float32") for name in cases] + [("fusion", "bfloat16")]
     torch.backends.cudnn.allow_tf32 = False
     out = {}
@@ -1315,9 +1481,10 @@ def provider_reference(torch, tmp: str) -> dict:
                                     "quality_model": "edsr_xl", "compute_dtype": dtype,
                                     "device": device, **QUALITY_FLAGS, **flags})
             path = os.path.join(tmp, f"prov_{name}_{dtype}_{device}.tiff")
-            pipe = SuperResolutionPipeline(cfg, weights)
             t0 = time.time()
-            res = pipe.process(image, path, prompt=prompt)
+            with (store_masked(tmp) if name in UNTRAINED_CASES else contextlib.nullcontext()):
+                pipe = SuperResolutionPipeline(cfg, weights)
+                res = pipe.process(image, path, prompt=prompt)
             if not res.success:
                 fail(f"provider_reference: {name} {dtype} on {device}: {res.error_message}")
             got[device] = (read_tiff(path).astype(np.int16), pipe.last_run_info,
@@ -1664,7 +1831,7 @@ def jobs_batch(torch, K, tmp: str, image: np.ndarray, main_tiff: str) -> dict:
 
 
 def job_layer(torch, K, tmp: str, image: np.ndarray, main_pipe, main_tiff: str) -> dict:
-    """The job layer at full width (module docstring, phase 12)."""
+    """The job layer at full width (module docstring, phase 13)."""
     out, times = {}, {}
     t0 = time.time()
     out["degrade"], _ = jobs_degrade(torch, K, tmp, image)
@@ -1770,10 +1937,9 @@ def zssr_path(torch, K, tmp: str, image: np.ndarray, main_tiff: str) -> tuple:
 
 
 def train_phase(torch, tmp: str) -> dict:
-    """``train_synthetic`` on edsr_xl x3 (module docstring, phase 14), a
+    """``train_synthetic`` on edsr_xl x3 (module docstring, phase 15), a
     ``process()`` that loads what it saved as trained (no IBP), and one
     ``python3 -m srs_tpu_torch train --synthetic`` subprocess."""
-    import srs_tpu_torch.models.sr_module as sr_mod
     from srs_tpu_torch.io.native import read_tiff
     from srs_tpu_torch.models.corpus import make_corpus
     from srs_tpu_torch.models.registry import build_model, load_checkpoint
@@ -1809,27 +1975,17 @@ def train_phase(torch, tmp: str) -> dict:
 
     # process() with the same checkpoint_dir counts the net as trained: no IBP
     image = synthetic_image(96, 112, seed=8)
-    ibp = {"n": 0}
-    real_bp = sr_mod.back_project
-
-    def counted(*args, **kwargs):
-        ibp["n"] += 1
-        return real_bp(*args, **kwargs)
-
     cfg = dict(block_size=64, target_resolution="1008x864", ibp_steps=4, device="cuda",
                **QUALITY_FLAGS)
-    sr_mod.back_project = counted
-    try:
+    with ibp_calls() as ibp:
         pipe = SuperResolutionPipeline(PipelineConfig(checkpoint_dir=ckpt, **cfg))
         res = pipe.process(image, os.path.join(tmp, "trained.tiff"))
-    finally:
-        sr_mod.back_project = real_bp
     if not res.success:
         fail(f"train: process() with the trained net failed: {res.error_message}")
     info = pipe.last_run_info
-    if ibp["n"] or info["step_members"] != [[["edsr_xl", 1]], [["edsr_xl", 1]]] \
+    if ibp or info["step_members"] != [[["edsr_xl", 1]], [["edsr_xl", 1]]] \
             or not pipe.sr_module.is_trained("edsr_xl", 3):
-        fail(f"train: process() served {info['step_members']} with {ibp['n']} IBP calls")
+        fail(f"train: process() served {info['step_members']} with {len(ibp)} IBP calls")
     handed = SuperResolutionPipeline(PipelineConfig(**cfg), {("edsr_xl", 3): state})
     res2 = handed.process(image, os.path.join(tmp, "handed.tiff"))
     lsb = int(np.abs(read_tiff(res.output_path).astype(np.int16)
@@ -1855,7 +2011,7 @@ def train_phase(torch, tmp: str) -> dict:
         "bf16_peak_tflop_per_s": BF16_FLOPS / 1e12,
         "pct_of_bf16_peak": 100.0 * flops * TRAIN["steps"] / train_s / BF16_FLOPS,
         "first_chunk_loss": first, "last_chunk_loss": last, "peak_mem_gb": peak,
-        "process_trained": {"step_members": info["step_members"], "ibp_calls": ibp["n"],
+        "process_trained": {"step_members": info["step_members"], "ibp_calls": len(ibp),
                             "stage_times": res.stage_times, "vs_handed_in_lsb": lsb},
         "cli": {"seconds": cli_s, "stdout": proc.stdout.strip().splitlines()[-1:]},
     }
@@ -1919,7 +2075,7 @@ def train_reference(torch) -> dict:
     return out
 
 
-# -- the library API (phases 16 and 17) ----------------------------------------
+# -- the library API (phases 17 and 18) ----------------------------------------
 
 # Regions of interest of the library phase's process() in input (720x1280)
 # coordinates: one of each kind, the brand with its reference colour.
@@ -2228,7 +2384,7 @@ def library_examples() -> dict:
 
 
 def library(torch, K, tmp: str, image: np.ndarray, bench_pipe, bench_nums) -> dict:
-    """Phase 16: the library API at full size (ROIs, tiling, every
+    """Phase 17: the library API at full size (ROIs, tiling, every
     fusion, seams, the multigrid clone, the examples)."""
     roi = library_roi(torch, K, tmp, image, bench_pipe, bench_nums)
     blend = library_blend(torch, K, tmp, image)
@@ -2242,7 +2398,7 @@ def library(torch, K, tmp: str, image: np.ndarray, bench_pipe, bench_nums) -> di
 
 
 def library_reference(torch, tmp: str) -> dict:
-    """Phase 17: the library API card against CPU at the CPU tests' sizes,
+    """Phase 18: the library API card against CPU at the CPU tests' sizes,
     float32 with TF32 off: each fusion, the clones and the tiling merge
     within 1e-3 (the merge 1e-4), split tiles equal, Canny masks equal,
     commercial metrics (and a bicubic process() with ROIs) within
@@ -2324,7 +2480,7 @@ def library_reference(torch, tmp: str) -> dict:
     return out
 
 
-# -- the operator subcommands and generation (phases 18-20) ---------------------
+# -- the operator subcommands and generation (phases 19-21) ---------------------
 
 # Environment of the bench runs: no row in any log, the work directory in
 # the smoke's temporary directory.
@@ -2409,7 +2565,7 @@ def trace_kernels(trace_dir: str) -> dict:
 
 
 def subcommands(torch, K, tmp: str) -> dict:
-    """Phase 18: the operator subcommands on the bench configuration.
+    """Phase 19: the operator subcommands on the bench configuration.
     ``python3 -m srs_tpu_torch bench`` once in a subprocess (exit 0, one
     JSON line, no row in the repository's BENCH_LOCAL.md); then the port's
     bench in this process on the input that run rendered (``bench_config``,
@@ -2485,8 +2641,12 @@ def subcommands(torch, K, tmp: str) -> dict:
     if rc != 0 or info["backend"] != "cuda" or torch.cuda.get_device_name(0) not in info["devices"]:
         fail(f"subcommands: info exited {rc}: backend {info.get('backend')}, devices "
              f"{info.get('devices')}")
+    trained = {name: m["trained_scales"] for name, m in info["models"].items()}
+    if trained["edsr_xl"] != [3, 4] or trained["espcn"] != [2, 3, 4] \
+            or trained["edsr_l_robust"] != [2, 3]:
+        fail(f"subcommands: info lists {trained}, not the store's nets")
     out["info"] = {"seconds": time.time() - t0, "backend": info["backend"],
-                   "devices": info["devices"]}
+                   "devices": info["devices"], "trained_scales": trained}
 
     t0 = time.time()
     rc, text = cli_json(["warmup"])
@@ -2538,7 +2698,7 @@ def unet_flops(torch, module, size: int) -> int:
 
 
 def generate_phase(torch, tmp: str) -> dict:
-    """Phase 19: generation at the packaged width (``GEN``). ``train_ark``
+    """Phase 20: generation at the packaged width (``GEN``). ``train_ark``
     on the card (steps/s, TFLOP/s, first and last chunk loss, peak memory;
     the checkpoint and ``ark_meta.json`` reload equal); ``python3 -m
     srs_tpu_torch generate ... --size 2K --checkpoint-dir`` that directory
@@ -2664,7 +2824,7 @@ def _seeded_unet_state(torch, base: int, depth: int, seed: int) -> dict:
 
 
 def generate_reference(torch) -> dict:
-    """Phase 20: the generator card against CPU at the CPU tests' sizes
+    """Phase 21: the generator card against CPU at the CPU tests' sizes
     (``CondUNet(base=8, depth=2)`` at 16 px, seeded weights), float32 with
     TF32 off: the UNet's forward, ``sample_ark`` (3 steps, the noise handed
     in), ``refine_ark`` (the eps handed in), one ``train_ark`` batch's loss
@@ -2764,9 +2924,10 @@ def lsb_apart(path: str, ref_path: str) -> tuple:
 
 
 def mesh_phase(torch, K, tmp: str, image: np.ndarray, bench_nums: dict) -> dict:
-    """Phase 21: ``bench.py:69-83``'s configuration (the bench path's
-    pipeline, ledger and seeded ``edsr_xl``) with ``mesh_shape={"data": 2,
-    "space": 2}`` on a virtual mesh of four shards on ``cuda:0``: a cold
+    """Phase 22: ``bench.py:69-83``'s configuration (the bench path's
+    pipeline and seeded ``edsr_xl``, the store's ledger) with
+    ``mesh_shape={"data": 2, "space": 2}`` on a virtual mesh of four
+    shards on ``cuda:0``: a cold
     call with every K1/K2 launch held against its plain version, then two
     warm calls, each with the launch counts set to 0 just before it and
     read just after. The sharded blend must run without the finalize's
@@ -2779,9 +2940,7 @@ def mesh_phase(torch, K, tmp: str, image: np.ndarray, bench_nums: dict) -> dict:
     from srs_tpu_torch.io.native import read_tiff
     from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
 
-    ledger = os.path.join(tmp, "ledger")  # bench_path wrote EVAL.json there
-    pipe = SuperResolutionPipeline(PipelineConfig(**QUALITY_PATH, checkpoint_dir=ledger),
-                                   xl_weights())
+    pipe = SuperResolutionPipeline(PipelineConfig(**QUALITY_PATH), xl_weights())
     pipe.config.mesh_shape = dict(MESH_SHAPE)
     pipe.dispatcher = virtual_mesh(torch, MESH_SHAPE)
     path = os.path.join(tmp, "out_mesh.tiff")
@@ -2875,7 +3034,7 @@ def mesh_phase(torch, K, tmp: str, image: np.ndarray, bench_nums: dict) -> dict:
 
 
 def mesh_reference(torch, tmp: str) -> dict:
-    """Phase 22: the 2x2 mesh's ``process()`` at small size (80x96 ->
+    """Phase 23: the 2x2 mesh's ``process()`` at small size (80x96 ->
     864x720, seeded ``edsr_m``, routing, selection and QA off, two tile
     rows), on the card (the virtual mesh of ``cuda:0``) and on the CPU (the
     CPU repeated, ``mesh_shape`` in the config), float32 with TF32 off: the
@@ -2913,12 +3072,13 @@ def mesh_reference(torch, tmp: str) -> dict:
             "mesh": {d: {k: v for k, v in m.items() if k != "shape"} for d, m in infos.items()}}
 
 
-# -- the web UI, the sharded training step and the dry run (phases 23-27) ------
+# -- the web UI, the sharded training step and the dry run (phases 24-28) ------
 
 # The web UI's worker on the session's defaults: the bench configuration
 # (routing, selection and QA on; 100MP; provider quality) at a block of
-# min(tile 1024, 1024), with no weights, so the nets are untrained and
-# IBP runs. Its peak must leave room for a second job (PERF.md §2).
+# min(tile 1024, 1024), with nothing handed in, so the store's trained nets
+# serve and no IBP runs. Its peak must leave room for a second job
+# (PERF.md §2).
 WEBUI_PEAK_GB = 40.0
 # The exports the smoke builds from the worker's TIFF: (format, colour
 # space, bit depth).
@@ -2984,7 +3144,7 @@ def export_check(tiff: np.ndarray, data: bytes, name: str, fmt: str, space: str,
 
 
 def webui_phase(torch, K, tmp: str, image: np.ndarray) -> dict:
-    """Phase 23: the web UI's headless path on the card. The session at its
+    """Phase 24: the web UI's headless path on the card. The session at its
     defaults, ``extract_image_info`` of the input array, then
     ``monitor_page.start_worker`` (the Monitor page's worker thread) with
     the Configure page's state: a warm-up with every K1/K2 launch held
@@ -3033,7 +3193,7 @@ def webui_phase(torch, K, tmp: str, image: np.ndarray) -> dict:
     torch.cuda.reset_peak_memory_stats()
     calls: list = []
     K.reset_launches()
-    with recorded_upscales(calls):
+    with recorded_upscales(calls), ibp_calls() as ibp:
         elapsed = webui_worker(monitor, image, cfg_state)
     launches = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -3055,6 +3215,12 @@ def webui_phase(torch, K, tmp: str, image: np.ndarray) -> dict:
     if peak > WEBUI_PEAK_GB:
         fail(f"webui: peak {peak:.2f} GB leaves no room for a second job")
     run = pipe.last_run_info
+    untrained = [m for m, s in zip(run["models"], run["ladder"])
+                 if not pipe.sr_module.is_trained(m, s)]
+    if untrained or ibp or pipe.quality_module._lpips.sources != {"vgg": "store",
+                                                                   "alex": "store"}:
+        fail(f"webui: the worker served untrained {untrained} with {len(ibp)} IBP calls, "
+             f"LPIPS from {pipe.quality_module._lpips.sources}, not the store")
     tiff = read_tiff(path)
     w, h = MAIN_OUT
     if tiff.shape != (h, w, 3) or tiff.dtype != np.uint8:
@@ -3148,7 +3314,7 @@ def webui_phase(torch, K, tmp: str, image: np.ndarray) -> dict:
         "warmup_s": warm_s, "elapsed_s": elapsed, "output_mp": w * h / 1e6,
         "mp_per_s": w * h / 1e6 / elapsed, "peak_mem_gb": peak,
         "num_tiles": run["num_tiles"], "block": run["block"], "ladder": run["ladder"],
-        "models": run["models"], "provider": run["provider"],
+        "models": run["models"], "provider": run["provider"], "ibp_calls": len(ibp),
         "sr_chunk_tiles": chunks, "upscale_calls": calls,
         "routing": run.get("routing"), "save_breakdown": run.get("save_breakdown"),
         "sr_attempts": run.get("sr_attempts"),
@@ -3167,7 +3333,7 @@ def webui_phase(torch, K, tmp: str, image: np.ndarray) -> dict:
 
 
 def webui_reference(torch, tmp: str) -> dict:
-    """Phase 24: the worker's job at small size (60x80 -> 160x120, tile 64,
+    """Phase 25: the worker's job at small size (60x80 -> 160x120, tile 64,
     provider quality, untrained nets with IBP, QA on), on the card and on
     the CPU (``cfg_state["device"]``), float32 convolutions with TF32 off:
     both ``done``, TIFFs within 1 LSB."""
@@ -3237,7 +3403,7 @@ def sharded_steps(torch, net, opt, batches, mesh=None, stats=None):
 
 
 def sharded_train_phase(torch) -> dict:
-    """Phase 25: three steps of ``parallel/train.sharded_train_step`` on
+    """Phase 26: three steps of ``parallel/train.sharded_train_step`` on
     ``edsr_xl`` x3 at full width, batch 32, patch 48, on a data=2,
     space=2, model=2 virtual mesh of ``cuda:0``, against three unsharded
     ``models/train.train_step`` steps from the same weights and batches,
@@ -3300,7 +3466,7 @@ def sharded_train_phase(torch) -> dict:
 
 
 def sharded_train_reference(torch) -> dict:
-    """Phase 26: two sharded steps of a seeded ``edsr_m`` x2 (batch 4 of
+    """Phase 27: two sharded steps of a seeded ``edsr_m`` x2 (batch 4 of
     16-px patches) on a data=2, space=2, model=2 virtual mesh of the card
     and of the CPU, float32 with TF32 off: losses within relative 1e-3."""
     from srs_tpu_torch.models.registry import build_model, seeded_params
@@ -3336,7 +3502,7 @@ def sharded_train_reference(torch) -> dict:
 
 
 def dryrun_phase(torch, K) -> dict:
-    """Phase 27: ``parallel/dryrun.dryrun_multichip(8)`` on a virtual mesh
+    """Phase 28: ``parallel/dryrun.dryrun_multichip(8)`` on a virtual mesh
     of ``cuda:0`` (data=2, space=2, model=2 for the step; space=8 for the
     merge, blend and finalize): once with every K1/K2 launch held against
     the plain version, then once with the counts set to 0 just before and
@@ -3361,16 +3527,21 @@ def dryrun_phase(torch, K) -> dict:
             "launches_by_shape": launches_by_shape(held)}
 
 
-# -- the drivers under scripts/ (phases 28 and 29) ------------------------------
+# -- the drivers under scripts/ (phases 29 and 30) ------------------------------
 
 PROOF_OUT = (17320, 9742)  # (width, height) of the 200MP preset at 16:9
-PROOF_LADDER = [3, 4]
+# The proof's input reads as blurred, so routing serves the store's
+# edsr_l_robust, trained at x2 and x3, on [2, 2, 3] (the reference's
+# packaged nets route it so too); with every net untrained (the store
+# hidden) the ladder is [3, 4].
+PROOF_LADDER = [2, 2, 3]
+PROOF_REF_LADDER = [3, 4]
 PROOF_PEAK_GB = 80.0
 PROOF_READBACK_PSNR_DB = 30.0
 # The largest K1/K2 launches of the proof: 6 tiles of 512 px x12.
 PROOF_K1 = ([6, 6144, 6144, 3], [6, 3072, 3072, 3])
 PROOF_K2_OUT = [6, 6144, 6144, 3]
-# Card against CPU (phase 29): the proof's 16-bit TIFFs within 16 units,
+# Card against CPU (phase 30): the proof's 16-bit TIFFs within 16 units,
 # a sixteenth of one 8-bit LSB (257 units), so 8-bit pixels scaled to 16
 # bits would fail; quality_bench's rows (bf16 nets) within 0.05 dB;
 # pretrain from a seeded espcn x2 (float32, TF32 off), its loss within
@@ -3401,7 +3572,7 @@ QBENCH_GROUPS = (
 
 def proof_check(report: dict, name: str) -> None:
     """What the proof must show (the reference's proof row): the preset's
-    size at 16 bits on the [3, 4] ladder, a whole file, one SR attempt and
+    size at 16 bits on ``PROOF_LADDER``, a whole file, one SR attempt and
     no degradation."""
     bad = []
     if (report["width"], report["height"]) != PROOF_OUT or report["bits_tag"] != 16:
@@ -3621,7 +3792,9 @@ def training_drivers(torch, tmp: str, ckdir: str) -> dict:
         fail(f"drivers: train_ark: logged {rep['logged']} or its checkpoint")
     out["train_ark"] = {"eval": rep["eval"], "logged": rep["logged"]}
 
-    rep = run("reeval", reeval.main, [ckdir])
+    # reeval scores every trained net, the store's too (as the reference's
+    # scores its packaged ones): pretrain's alone is asked for
+    rep = run("reeval", reeval.main, ["--only", "edsr_xl_x3", ckdir])
     if list(rep) != ["edsr_xl_x3"] or abs(rep["edsr_xl_x3"]["psnr_net"]
                                           - entry["psnr_net"]) > 1e-3:
         fail(f"drivers: reeval of pretrain's net: {rep} against {entry}")
@@ -3636,7 +3809,7 @@ def training_drivers(torch, tmp: str, ckdir: str) -> dict:
 
 
 def drivers_phase(torch, K, tmp: str) -> dict:
-    """Phase 28: the drivers of ``srs_tpu_torch/drivers/`` on the card."""
+    """Phase 29: the drivers of ``srs_tpu_torch/drivers/`` on the card."""
     t0 = time.time()
     proof = proof_phase(torch, K, tmp)
     proof_s = time.time() - t0
@@ -3691,7 +3864,7 @@ def qbench_rows(rows):
 
 
 def drivers_reference(torch, tmp: str) -> dict:
-    """Phase 29: the drivers card against CPU at a reduced size. The proof
+    """Phase 30: the drivers card against CPU at a reduced size. The proof
     on a 32x18 input to 416x234 (13x, still the [3, 4] ladder), 16-bit
     TIFFs within ``PROOF_REF_UNITS``; ``quality_bench --n 1 --size 192``
     (192, not 128: zssr's 48-px LR patches need a 96-px input at x2) in
@@ -3710,7 +3883,7 @@ def drivers_reference(torch, tmp: str) -> dict:
     for dev in ("cuda", "cpu"):
         rep = proof_200mp.main(["--device", dev, "--source", "32x18", "--target", "416x234",
                                 "--block-size", "32", "--out", os.path.join(tmp, f"proof_{dev}")])
-        if rep["ladder"] != PROOF_LADDER:
+        if rep["ladder"] != PROOF_REF_LADDER:
             fail(f"drivers_reference: proof on {dev}: ladder {rep['ladder']}")
         tiffs[dev] = read_tiff(rep["output"]).astype(np.int32)
     units = int(np.abs(tiffs["cuda"] - tiffs["cpu"]).max())
@@ -4040,7 +4213,8 @@ def main() -> int:
         emit("kernels", t0, tolerance=KERNEL_ATOL, **knums)
 
         t0 = time.time()
-        emit("reference", t0, **reference_check(torch, tmp))
+        with store_masked(tmp):  # seeded edsr_m; selection finds no ledger
+            emit("reference", t0, **reference_check(torch, tmp))
 
         image = synthetic_image(MAIN_H, MAIN_W, seed=7)
         t0 = time.time()
@@ -4052,14 +4226,20 @@ def main() -> int:
         emit("bench_path", t0, **bench)
 
         t0 = time.time()
-        cli = cli_path(torch, K, tmp, image)
+        packaged = packaged_phase(torch, K, tmp, image, bench)
+        emit("packaged", t0, **packaged)
+
+        t0 = time.time()
+        with store_masked(tmp):  # in this process: untrained nets with IBP
+            cli = cli_path(torch, K, tmp, image)
         emit("cli_path", t0, **cli)
 
         t0 = time.time()
         emit("other_blends", t0, **other_blends(torch, tmp, image))
 
         t0 = time.time()
-        emit("blend_reference", t0, **blend_reference(torch, tmp))
+        with store_masked(tmp):  # untrained nets with IBP
+            emit("blend_reference", t0, **blend_reference(torch, tmp))
 
         t0 = time.time()
         prov, prov_pipes = providers(torch, K, tmp, image,
@@ -4114,7 +4294,8 @@ def main() -> int:
         emit("webui", t0, **webui)
 
         t0 = time.time()
-        emit("webui_reference", t0, **webui_reference(torch, tmp))
+        with store_masked(tmp):  # untrained nets with IBP
+            emit("webui_reference", t0, **webui_reference(torch, tmp))
 
         t0 = time.time()
         emit("sharded_train", t0, **sharded_train_phase(torch))
@@ -4131,11 +4312,13 @@ def main() -> int:
         emit("drivers", t0, **drv)
 
         t0 = time.time()
-        emit("drivers_reference", t0, **drivers_reference(torch, tmp))
+        with store_masked(tmp):  # the seeded nets each row names
+            emit("drivers_reference", t0, **drivers_reference(torch, tmp))
 
         t0 = time.time()
         held = {"main_path": main["held_against_plain"], "zssr": zssr["held_against_plain"],
                 "bench_path": bench["held_against_plain"],
+                "packaged": packaged["held_against_plain"],
                 "cli_path": cli["held_against_plain"],
                 **{f"provider_{k}": v["held_against_plain"] for k, v in prov.items()},
                 **{f"jobs_{k}": job_nums[k]["held_against_plain"] for k in JOB_CASES},
@@ -4170,9 +4353,11 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": "srs_tpu_torch/csrc/pyramid.cu",
             "replaces": f"srs_tpu/ops/pallas/pyramid_pallas.py:{line}",
-            # the bench path is the system's main path (bench.py:69-83)
-            "launches": bench["launches"][name],
-            "launches_by_path": {"bench_path": bench["launches"][name],
+            # the system's main path: bench.py:69-83's configuration with
+            # nothing handed in, serving the store's trained nets
+            "launches": packaged["launches"][name],
+            "launches_by_path": {"packaged": packaged["launches"][name],
+                                 "bench_path": bench["launches"][name],
                                  "main_path": main["launches"][name],
                                  "cli_path": cli["launches"][name],
                                  "zssr": zssr["launches"][name],

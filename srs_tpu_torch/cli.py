@@ -197,7 +197,8 @@ def _cmd_generate(args: argparse.Namespace) -> int:
 def _cmd_info(args: argparse.Namespace) -> int:
     """The reference's keys: ``backend`` is "cuda" or "cpu", ``devices``
     the torch device names, and a net's ``trained_scales`` the scales of
-    its ``.pt`` state dicts under ``--checkpoint-dir``."""
+    its ``.pt`` state dicts in the store (as the reference lists its
+    packaged ones) and under ``--checkpoint-dir``."""
     import json
     import re
 
@@ -205,14 +206,14 @@ def _cmd_info(args: argparse.Namespace) -> int:
 
     from . import __version__
     from .config import SystemConfig
-    from .models.registry import MODEL_REGISTRY
+    from .models.registry import MODEL_REGISTRY, store_manifest
 
     ckpt = os.path.expanduser(args.checkpoint_dir)
-    saved = os.listdir(ckpt) if os.path.isdir(ckpt) else []
+    saved = [*store_manifest(), *(os.listdir(ckpt) if os.path.isdir(ckpt) else [])]
     models = {}
     for name, spec in MODEL_REGISTRY.items():
-        trained = sorted(int(m[2]) for m in (re.fullmatch(r"(.+)_x(\d+)\.pt", f) for f in saved)
-                         if m is not None and m[1] == name)
+        trained = sorted({int(m[2]) for m in (re.fullmatch(r"(.+)_x(\d+)\.pt", f) for f in saved)
+                          if m is not None and m[1] == name})
         models[name] = {
             "description": spec.description,
             "trained_scales": trained or "untrained (bicubic floor + IBP)",

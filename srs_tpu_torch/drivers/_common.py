@@ -46,15 +46,12 @@ def cache_dir(*parts: str) -> str:
 def trained_params(name: str, scale: int,
                    checkpoint_dir: Optional[str]) -> Optional[Dict[str, torch.Tensor]]:
     """The state dict the port saved for ``name`` at ``scale`` in
-    ``checkpoint_dir``, else in the packaged directory (the two places the
-    reference's ``build_model`` looks), or None."""
-    from ..models.registry import PACKAGED_CHECKPOINT_DIR, load_checkpoint
+    ``checkpoint_dir``, else the store's (the two places the reference's
+    ``build_model`` looks), or None."""
+    from ..models.registry import load_checkpoint, load_packaged
 
-    for d in (checkpoint_dir, PACKAGED_CHECKPOINT_DIR):
-        sd = load_checkpoint(name, scale, d) if d else None
-        if sd is not None:
-            return sd
-    return None
+    sd = load_checkpoint(name, scale, checkpoint_dir)
+    return sd if sd is not None else load_packaged(f"{name}_x{scale}.pt")
 
 
 def load_net(name: str, scale: int, checkpoint_dir: Optional[str],

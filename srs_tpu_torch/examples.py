@@ -6,9 +6,9 @@ and the pipeline. Each prints one section headed ``== <name>``.
     python -m srs_tpu_torch.examples [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given. No weights are handed
-in, so every net is untrained (bicubic with back-projection) and LPIPS
-uses its seeded features; the pipeline's input PNG is written by the
-port's encoder.
+in, so the store's trained nets and LPIPS features serve (a net the
+store lacks is bicubic with back-projection); the pipeline's input PNG
+is written by the port's encoder.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ scale-1 restoration net whose first feature map is FiLM-modulated by
 the conditioning space. It is the identity with a zero ``conv_out``, so
 an untrained polish changes nothing. The polish counts as trained when
 ``("cond_polish", 1)`` weights were handed in
-(``models/registry.convert_flax_params`` or ``seeded_params``).
+(``models/registry.convert_flax_params`` or ``seeded_params``), saved in
+the checkpoint directory, or stored (``registry.PACKAGED_CHECKPOINT_DIR``).
 
 The training half makes the polish's (distorted, c) pairs
 (``degrade_conditioned``): per image each axis of ``c`` is zero with
@@ -119,7 +120,7 @@ def build_cond_polish(
 
 
 # checkpoint_dir -> what is_cond_polish_trained found
-_CACHE: Dict[Optional[str], bool] = {}
+_CACHE: Dict[Tuple[Optional[str], str], bool] = {}
 
 
 def clear_cond_cache() -> None:
@@ -130,16 +131,16 @@ def clear_cond_cache() -> None:
 
 def is_cond_polish_trained(checkpoint_dir: Optional[str] = None) -> bool:
     """Whether the port has trained polish weights: ``cond_polish_x1.pt`` in
-    ``checkpoint_dir``, else in the packaged directory (reference
-    conditioning.py:158, which looks in the same two places), kept per
-    directory until :func:`clear_cond_cache`."""
-    if checkpoint_dir not in _CACHE:
-        from .registry import PACKAGED_CHECKPOINT_DIR, checkpoint_path
+    ``checkpoint_dir``, else in the store (reference conditioning.py:158,
+    which looks in the same two places), kept per directory and store
+    until :func:`clear_cond_cache`."""
+    from . import registry
 
-        _CACHE[checkpoint_dir] = any(
-            os.path.isfile(checkpoint_path("cond_polish", 1, d))
-            for d in (checkpoint_dir, PACKAGED_CHECKPOINT_DIR) if d)
-    return _CACHE[checkpoint_dir]
+    key = (checkpoint_dir, registry.PACKAGED_CHECKPOINT_DIR)
+    if key not in _CACHE:
+        saved = registry.checkpoint_path("cond_polish", 1, checkpoint_dir) if checkpoint_dir else ""
+        _CACHE[key] = os.path.isfile(saved) or bool(registry.packaged_file("cond_polish_x1.pt"))
+    return _CACHE[key]
 
 
 def apply_cond_polish(

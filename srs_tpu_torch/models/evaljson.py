@@ -1,11 +1,13 @@
 """EVAL.json, the evidence ledger of the checkpoints (port of
 ``srs_tpu/models/evaljson.py``).
 
-The port reads the reference's packaged ledger by path and never imports
-the JAX package: the packaged directory is ``srs_tpu/models/checkpoints``
-beside this package in a checkout. :func:`update_eval` writes the port's
-own ledgers, under ``~/.cache/srs_tpu_torch`` unless a directory is
-given, and never into the JAX package.
+The packaged ledger is the store's copy of the reference's
+(``PACKAGED_EVAL_DIR``, byte-equal to
+``srs_tpu/models/checkpoints/EVAL.json``). Like the reference's, its
+place is fixed: pointing ``registry.PACKAGED_CHECKPOINT_DIR`` elsewhere
+hides the stored nets, not the ledgers. :func:`update_eval` writes the
+port's own ledgers, under ``~/.cache/srs_tpu_torch`` unless a directory
+is given, and never into the JAX package or the store.
 """
 
 from __future__ import annotations
@@ -16,8 +18,8 @@ from typing import Any, Dict, Iterable, Optional
 
 from ..utils.paths import REFERENCE_DIR
 
-__all__ = ["DERIVED_EVIDENCE", "DEFAULT_EVAL_DIR", "eval_path", "load_eval", "update_eval",
-           "packaged_eval_dir"]
+__all__ = ["DERIVED_EVIDENCE", "DEFAULT_EVAL_DIR", "PACKAGED_EVAL_DIR", "eval_path",
+           "load_eval", "update_eval", "packaged_eval_dir"]
 
 # Evidence blocks measured against one set of weights: a trainer that
 # replaces the weights passes them as ``drop`` (reference evaljson.py:27).
@@ -32,6 +34,8 @@ DERIVED_EVIDENCE = (
 
 # Where the port's ledger lives when no directory is given.
 DEFAULT_EVAL_DIR = os.path.join("~", ".cache", "srs_tpu_torch")
+# The store, whose EVAL.json and FUSION.json are the packaged ledgers.
+PACKAGED_EVAL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
 
 
 def eval_path(out_dir: Optional[str] = None) -> str:
@@ -40,12 +44,16 @@ def eval_path(out_dir: Optional[str] = None) -> str:
 
 
 def load_eval(out_dir: Optional[str] = None) -> Dict[str, Any]:
-    """The ledger in ``out_dir``, or {} when it has none."""
+    """The ledger in ``out_dir``, or {} when it has none; one that is not
+    JSON raises ``ValueError`` naming it."""
     path = eval_path(out_dir)
     if not os.path.isfile(path):
         return {}
     with open(path) as f:
-        return json.load(f)
+        try:
+            return json.load(f)
+        except ValueError as e:
+            raise ValueError(f"{path}: not loadable ({e})") from e
 
 
 def update_eval(out_dir: Optional[str], key: str, fields: Dict[str, Any],
@@ -54,12 +62,12 @@ def update_eval(out_dir: Optional[str], key: str, fields: Dict[str, Any],
     (``DEFAULT_EVAL_DIR`` when None), keeping every other entry and field;
     ``drop`` removes named fields first, ``replace=True`` swaps the whole
     entry; the file is replaced atomically (reference evaljson.py:49).
-    Returns the merged entry. A directory inside the JAX package raises
-    ``ValueError``."""
+    Returns the merged entry. A directory inside the JAX package or the
+    store raises ``ValueError``."""
     path = eval_path(out_dir)
-    ref = os.path.realpath(REFERENCE_DIR) + os.sep
-    if os.path.realpath(path).startswith(ref):
-        raise ValueError(f"{path}: the port never writes into the JAX package")
+    for guarded, what in ((REFERENCE_DIR, "the JAX package"), (packaged_eval_dir(), "the store")):
+        if os.path.realpath(path).startswith(os.path.realpath(guarded) + os.sep):
+            raise ValueError(f"{path}: the port never writes into {what}")
     data = load_eval(out_dir)
     if replace:
         data[key] = {}
@@ -76,7 +84,12 @@ def update_eval(out_dir: Optional[str], key: str, fields: Dict[str, Any],
 
 
 def packaged_eval_dir() -> str:
-    """The JAX package's checkpoints directory of this checkout (absent
-    where the checkpoints are not copied, which reads as an empty
-    ledger)."""
-    return os.path.join(REFERENCE_DIR, "models", "checkpoints")
+    """``PACKAGED_EVAL_DIR``, which holds the packaged EVAL.json and
+    FUSION.json (a directory without them reads as an empty ledger). A
+    ledger its manifest lists that is missing or differs from the
+    manifest's bytes or sha256 raises ``registry.StoreError``."""
+    from . import registry
+
+    for fname in ("EVAL.json", "FUSION.json"):
+        registry.packaged_file(fname, PACKAGED_EVAL_DIR, check_sha=True)
+    return PACKAGED_EVAL_DIR

@@ -8,9 +8,9 @@ weights are dropped at serving time and the rest renormalised
 (``SuperResolutionModule._fusion_for``).
 
 The port reads the file by path: ``ModelConfig.checkpoint_dir`` first,
-then the JAX package's checkpoints directory in this checkout, as
-``models/evaljson.py`` reads EVAL.json. It never writes into that
-directory: ``save_fusion`` takes the directory to write.
+then the store's copy of the reference's (``evaljson.packaged_eval_dir``),
+as ``models/evaljson.py`` reads EVAL.json. It never writes into the
+store: ``save_fusion`` takes the directory to write.
 """
 
 from __future__ import annotations

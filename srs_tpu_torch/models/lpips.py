@@ -8,11 +8,15 @@ channel-normalized features.
 
 Weights: :func:`convert_lpips_params` turns a reference parameter tree
 (flax HWIO kernels) into a state dict; ``LPIPSMetric(params={"vgg": ...,
-"alex": ...})`` serves those. A net with no state dict handed in gets
-seeded features: truncated-normal LeCun weights (flax's default
-initializer) drawn from ``torch.Generator().manual_seed(crc32(net))``.
-The seed is the reference's, the generator is not, so seeded values
-differ from the reference's seeded features; the report keeps its keys.
+"alex": ...})`` serves those. A net with no state dict handed in serves
+the store's ranking-trained features (``lpips_vgg.pt``, ``lpips_alex.pt``
+under ``registry.PACKAGED_CHECKPOINT_DIR``, converted from the
+reference's packaged ones), as the reference loads its own by default.
+Where the store holds none, the net gets seeded features: truncated-normal
+LeCun weights (flax's default initializer) drawn from
+``torch.Generator().manual_seed(crc32(net))``. The seed is the
+reference's, the generator is not, so seeded values differ from the
+reference's seeded features; the report keeps its keys.
 """
 
 from __future__ import annotations
@@ -112,7 +116,8 @@ def _unit_normalize(f: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 
 class LPIPSMetric:
     """``LPIPS((H,W,C) [0,255], (H,W,C) [0,255], net=...)`` -> 0-d tensor,
-    on ``device`` (the card by default)."""
+    on ``device`` (the card by default). ``sources`` says, per net built,
+    where its features came from: "handed", "store" or "seeded"."""
 
     def __init__(
         self,
@@ -122,13 +127,20 @@ class LPIPSMetric:
         self.params = dict(params or {})
         self.device = resolve_device(device)
         self._nets: Dict[str, FeatureNet] = {}
+        self.sources: Dict[str, str] = {}
 
     def _net(self, net: str) -> FeatureNet:
         if net not in self._nets:
             if net not in _ARCHS:
                 raise KeyError(f"unknown LPIPS net {net!r}")
+            from .registry import load_packaged
+
             module = FeatureNet(**_ARCHS[net])
-            sd = self.params.get(net) or seeded_lpips_params(net)
+            sd, self.sources[net] = self.params.get(net), "handed"
+            if sd is None:
+                sd, self.sources[net] = load_packaged(f"lpips_{net}.pt"), "store"
+            if sd is None:
+                sd, self.sources[net] = seeded_lpips_params(net), "seeded"
             module.load_state_dict({k: v.float() for k, v in sd.items()})
             self._nets[net] = module.to(self.device).eval().requires_grad_(False)
         return self._nets[net]

@@ -3,39 +3,48 @@
 ``cond_polish`` (``models/conditioning.py``), which the reference builds
 beside the registry.
 
-The card's machine cannot read the reference's orbax checkpoints, so the
-port never loads them. Parameters are handed in instead:
+Trained weights come, in this order, from (reference registry.py:106-134):
 
-- :func:`convert_flax_params` turns a reference parameter tree (numpy
-  arrays, as JAX loads it on the CPU) into the port's state dict;
-- :func:`seeded_params` makes random parameters at a net's full width
-  from a seed, with a non-zero tail so the net changes the pixels;
-- :func:`load_checkpoint` reads the state dict the port's trainer saves
-  (``models/train.save_checkpoint``) at ``{dir}/{name}_x{scale}.pt``;
-  :func:`is_pretrained` asks whether one is there.
+- state dicts handed in: :func:`convert_flax_params` turns a reference
+  parameter tree (numpy arrays, as JAX loads it on the CPU) into one, and
+  :func:`seeded_params` makes random ones at a net's full width;
+- the state dicts the port's trainer saves (``models/train.
+  save_checkpoint``) at ``{checkpoint_dir}/{name}_x{scale}.pt``
+  (:func:`load_checkpoint`);
+- the store, ``PACKAGED_CHECKPOINT_DIR`` (``models/checkpoints/`` beside
+  this module): float32 state dicts converted from the reference's
+  packaged checkpoints, its ``EVAL.json`` and ``FUSION.json``, and
+  ``MANIFEST.json`` with each file's bytes and sha256. The manifest says
+  what the store holds; a listed file that is missing, cut short or not
+  loadable raises :class:`StoreError` naming it (:func:`packaged_file`,
+  :func:`load_packaged`), where the reference would serve the net
+  untrained.
 
-``PACKAGED_CHECKPOINT_DIR`` is the reference's packaged directory, by
-path; it holds orbax checkpoints only, which the port does not read.
-
-:func:`build_model` counts handed-in parameters as trained (the pipeline
-then skips back-projection, as the reference does for its packaged nets,
-sr_module.py:749). Without parameters it builds the from-scratch init of
-:func:`init_params` (flax's: LeCun-normal kernels, zero biases, a zero
-last conv), which is exact bicubic, and reports it untrained.
+:func:`is_pretrained` asks whether a net has trained weights in either
+directory. :func:`build_model` counts handed-in parameters as trained
+(the pipeline then skips back-projection, as the reference does for its
+packaged nets, sr_module.py:749). Without parameters it builds the
+from-scratch init of :func:`init_params` (flax's: LeCun-normal kernels,
+zero biases, a zero last conv), which is exact bicubic, and reports it
+untrained.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import math
 import os
+import re
+import threading
+from collections.abc import MutableMapping
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.paths import REFERENCE_DIR
 from .conditioning import CondPolish
 from .nets import EDSR, ESPCN, RCAN, shuffle_channel_order
 
@@ -51,12 +60,25 @@ __all__ = [
     "is_pretrained",
     "clear_param_cache",
     "PACKAGED_CHECKPOINT_DIR",
+    "MANIFEST_NAME",
+    "StoreError",
+    "store_manifest",
+    "packaged_file",
+    "load_packaged",
+    "TrainedWeights",
 ]
 
-# The reference's packaged checkpoints (reference registry.py:106), by path.
-PACKAGED_CHECKPOINT_DIR = os.path.join(REFERENCE_DIR, "models", "checkpoints")
-# (name, scale, checkpoint_dir) -> what is_pretrained found
-_LOADED: Dict[Tuple[str, int, Optional[str]], bool] = {}
+# The port's store of trained weights (the reference's packaged directory,
+# registry.py:106, converted): read at call time, so a caller may point it
+# elsewhere.
+PACKAGED_CHECKPOINT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
+MANIFEST_NAME = "MANIFEST.json"
+# (name, scale, checkpoint_dir, store) -> what is_pretrained found
+_LOADED: Dict[Tuple[str, int, Optional[str], str], bool] = {}
+# manifest path -> ((mtime in ns, size), its "files" table)
+_MANIFESTS: Dict[str, Tuple[Tuple[int, int], Dict[str, Dict[str, Any]]]] = {}
+# (store file path, sha256) -> its state dict, read once per process
+_PACKAGED: Dict[Tuple[str, str], Dict[str, torch.Tensor]] = {}
 
 
 @dataclass(frozen=True)
@@ -231,27 +253,170 @@ def load_checkpoint(name: str, scale: int,
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+class StoreError(RuntimeError):
+    """A file the store's manifest lists is missing, cut short or not
+    loadable."""
+
+
+def store_manifest(store: Optional[str] = None) -> Dict[str, Dict[str, Any]]:
+    """The manifest of the store in ``store`` (``PACKAGED_CHECKPOINT_DIR``
+    by default): file name -> ``{"bytes", "sha256", "source"}`` ({} where
+    the directory has no manifest). Read again when it changes."""
+    path = os.path.join(store or PACKAGED_CHECKPOINT_DIR, MANIFEST_NAME)
+    try:
+        st = os.stat(path)
+    except OSError:
+        return {}
+    stamp = (st.st_mtime_ns, st.st_size)
+    cached = _MANIFESTS.get(path)
+    if cached is None or cached[0] != stamp:
+        try:
+            with open(path) as f:
+                files = json.load(f)["files"]
+        except (OSError, ValueError, KeyError) as e:
+            raise StoreError(f"{path}: unreadable store manifest ({e})") from e
+        _MANIFESTS[path] = cached = (stamp, files)
+    return cached[1]
+
+
+def packaged_file(fname: str, store: Optional[str] = None,
+                  check_sha: bool = False) -> Optional[str]:
+    """The path of ``fname`` in the store (``PACKAGED_CHECKPOINT_DIR`` by
+    default), or None when its manifest does not list it. A listed file
+    that is missing or of another size than the manifest's, or with
+    ``check_sha`` of another sha256, raises :class:`StoreError`."""
+    store = store or PACKAGED_CHECKPOINT_DIR
+    entry = store_manifest(store).get(fname)
+    if entry is None:
+        return None
+    path = os.path.join(store, fname)
+    try:
+        size = os.path.getsize(path)
+    except OSError as e:
+        raise StoreError(f"{path}: listed in the store's manifest but missing") from e
+    if size != entry["bytes"]:
+        raise StoreError(f"{path}: {size} bytes, the store's manifest says {entry['bytes']}")
+    if check_sha and _sha256(path) != entry["sha256"]:
+        raise StoreError(f"{path}: sha256 differs from the store's manifest")
+    return path
+
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def load_packaged(fname: str) -> Optional[Dict[str, torch.Tensor]]:
+    """The state dict of ``fname`` in the store (on the CPU), or None when
+    the manifest does not list it. The file's sha256 is checked against
+    the manifest's and it is read once per process; the tensors are shared
+    between callers, which copy them into their nets. Any fault raises
+    :class:`StoreError` naming the file."""
+    path = packaged_file(fname)
+    if path is None:
+        return None
+    key = (path, store_manifest()[fname]["sha256"])
+    if key not in _PACKAGED:
+        packaged_file(fname, check_sha=True)
+        try:
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+        except Exception as e:  # noqa: BLE001 - any fault names the file
+            raise StoreError(f"{path}: not loadable ({type(e).__name__}: {e})") from e
+        _PACKAGED[key] = sd
+    return dict(_PACKAGED[key])
+
+
+def _net_file(fname: str) -> Optional[Tuple[str, int]]:
+    """(name, scale) of a saved net's file name, or None for another file."""
+    m = re.fullmatch(r"(.+)_x(\d+)\.pt", fname)
+    if m is None or (m[1] not in MODEL_REGISTRY and m[1] != "cond_polish"):
+        return None
+    return m[1], int(m[2])
+
+
+class TrainedWeights(MutableMapping):
+    """``(name, scale)`` -> state dict of every trained net, in the
+    reference's order (registry.py:134): the ones handed in, then those
+    saved under ``checkpoint_dir``, then the store's. A saved or stored
+    net is read at its first lookup (under a lock: the job layer's workers
+    share one mapping); a stored one that is missing or cut short raises
+    :class:`StoreError` here already."""
+
+    def __init__(self,
+                 handed: Optional[Mapping[Tuple[str, int], Mapping[str, torch.Tensor]]] = None,
+                 checkpoint_dir: Optional[str] = None):
+        self._own: Dict[Tuple[str, int], Mapping[str, torch.Tensor]] = dict(handed or {})
+        self._lazy: Dict[Tuple[str, int], Callable[[], Dict[str, torch.Tensor]]] = {}
+        self._lock = threading.Lock()
+        d = os.path.expanduser(checkpoint_dir) if checkpoint_dir else None
+        if d and os.path.isdir(d):
+            for fname in sorted(os.listdir(d)):
+                key = _net_file(fname)
+                if key is not None and key not in self._own:
+                    self._lazy[key] = lambda k=key: load_checkpoint(k[0], k[1], d)
+        for fname in sorted(store_manifest()):
+            key = _net_file(fname)
+            if key is not None and key not in self._own and key not in self._lazy:
+                packaged_file(fname)
+                self._lazy[key] = lambda f=fname: load_packaged(f)
+
+    def __getitem__(self, key):
+        with self._lock:
+            if key not in self._own:
+                if key not in self._lazy:
+                    raise KeyError(key)
+                self._own[key] = self._lazy[key]()
+                del self._lazy[key]
+            return self._own[key]
+
+    def __contains__(self, key) -> bool:
+        return key in self._own or key in self._lazy
+
+    def __setitem__(self, key, value) -> None:
+        with self._lock:
+            self._lazy.pop(key, None)
+            self._own[key] = value
+
+    def __delitem__(self, key) -> None:
+        with self._lock:
+            if self._own.pop(key, None) is None and self._lazy.pop(key, None) is None:
+                raise KeyError(key)
+
+    def __iter__(self) -> Iterator[Tuple[str, int]]:
+        return iter([*self._own, *self._lazy])
+
+    def __len__(self) -> int:
+        return len(self._own) + len(self._lazy)
+
+
 def clear_param_cache() -> None:
-    """Forget what :func:`is_pretrained` found (reference registry.py:79)."""
+    """Forget what :func:`is_pretrained` found and what was read from the
+    store (reference registry.py:79)."""
     _LOADED.clear()
+    _MANIFESTS.clear()
+    _PACKAGED.clear()
 
 
 def is_pretrained(name: str, scale: int = 2, checkpoint_dir: Optional[str] = None,
                   dtype: Any = "bfloat16") -> bool:
     """Whether the port has trained weights of ``name`` at ``scale``: a
-    state dict its trainer saved in ``checkpoint_dir``, else in
-    ``PACKAGED_CHECKPOINT_DIR`` (reference registry.py:84, which looks in
-    the same two places for its own checkpoints). The answer is kept per
-    (name, scale, directory) until :func:`clear_param_cache`, as the
-    reference keeps its probe build; ``dtype`` is the reference's
-    argument and changes nothing here. An unknown name raises
-    ``KeyError``."""
+    state dict its trainer saved in ``checkpoint_dir``, else one in the
+    store (reference registry.py:84, which looks in the same two places
+    for its own checkpoints). The answer is kept per (name, scale,
+    directory, store) until :func:`clear_param_cache`, as the reference
+    keeps its probe build; ``dtype`` is the reference's argument and
+    changes nothing here. An unknown name raises ``KeyError``; a store
+    file listed but missing raises :class:`StoreError`."""
     if name not in MODEL_REGISTRY and name != "cond_polish":
         raise KeyError(name)
-    key = (name, scale, checkpoint_dir)
+    key = (name, scale, checkpoint_dir, PACKAGED_CHECKPOINT_DIR)
     if key not in _LOADED:
-        _LOADED[key] = any(os.path.isfile(checkpoint_path(name, scale, d))
-                           for d in (checkpoint_dir, PACKAGED_CHECKPOINT_DIR) if d)
+        _LOADED[key] = bool(
+            (checkpoint_dir and os.path.isfile(checkpoint_path(name, scale, checkpoint_dir)))
+            or packaged_file(f"{name}_x{scale}.pt"))
     return _LOADED[key]
 
 

@@ -7,7 +7,8 @@ self-ensemble on, ``photo_panel_ensemble``'s where a candidate has one:
 the "+" mode ranks the nets differently); the configured net
 only loses a step to a candidate that is trained at that scale and
 strictly better on record. "Trained" is the caller's predicate: in the
-port, a net is trained at a scale when its weights were handed in.
+port, a net is trained at a scale when its weights were handed in, saved
+or stored (``registry.TrainedWeights``).
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ serves every provider:
 with the dihedral self-ensemble (``_dihedral_ensemble`` 101-121) when
 ``config.self_ensemble`` is on, and the prompt-conditioned polish
 (``_conditioned`` 753-780) when a category is asked for and
-``("cond_polish", 1)`` weights were handed in.
+``("cond_polish", 1)`` is trained (handed in, saved or stored).
 
 The single-image API (reference 51-99, 329-609) serves arrays, tensors
 and, where PIL is installed, PIL images: ``upscale_seedream``,
@@ -31,17 +31,20 @@ the ``upscale`` dispatcher, ``retry_with_backoff`` and
 reference's ``fold_seed`` (a ``torch.Generator`` seeded from the content
 hash).
 
-Weights are handed in, or read from ``config.checkpoint_dir``, where the
-port's trainer saves them (``{name}_x{scale}.pt``,
-``registry.load_checkpoint``); either way the net counts as trained.
+Weights are handed in, else read from ``config.checkpoint_dir``, where
+the port's trainer saves them (``{name}_x{scale}.pt``,
+``registry.load_checkpoint``), else from the store of trained weights
+(``registry.PACKAGED_CHECKPOINT_DIR``), as the reference reads its
+packaged checkpoints (registry.py:134); any of these counts as trained.
+A net with none of them is served untrained, with IBP, and a warning
+names it once per process.
 """
 
 from __future__ import annotations
 
 import hashlib
 import io
-import os
-import re
+import logging
 import time
 from dataclasses import dataclass, field
 from enum import Enum
@@ -62,7 +65,7 @@ from .conditioning import cond_vector
 from .fusion import load_fusion
 from .nets import back_project
 from .prompts import PromptTemplateManager
-from .registry import MODEL_REGISTRY, build_model, load_checkpoint
+from .registry import TrainedWeights, build_model
 from .routing import route_quality_model
 from .selection import panel_best_model
 
@@ -74,6 +77,11 @@ __all__ = [
     "scale_ladder",
     "SuperResolutionModule",
 ]
+
+logger = logging.getLogger(__name__)
+
+# (name, scale) of the untrained nets served so far, each warned of once
+_WARNED_UNTRAINED: set = set()
 
 # Providers whose nets are the quality tier's; ``fast`` and ``veimagex``
 # serve the fast net (reference sr_module.py:735-741).
@@ -198,8 +206,9 @@ class SuperResolutionModule:
     ``weights`` maps ``(net name, scale)`` to a state dict; a net with
     weights counts as trained (``("espcn_polish", 1)`` for the hybrid
     polish, ``("cond_polish", 1)`` for the conditioned polish). The
-    state dicts the trainer saved in ``config.checkpoint_dir`` join them
-    (handed-in weights win). With
+    state dicts the trainer saved in ``config.checkpoint_dir``, then the
+    store's, join them (``registry.TrainedWeights``; handed-in weights
+    win). With
     ``config.per_scale_selection`` each quality step serves the panel-best
     trained net at its scale (``models/selection.py``); with
     ``config.auto_route`` damaged inputs serve the robust net when it is
@@ -216,7 +225,7 @@ class SuperResolutionModule:
         device: str | torch.device = "cuda",
     ):
         self.config = config or ModelConfig()
-        self.weights = dict(weights or {})
+        self.weights = TrainedWeights(weights, self.config.checkpoint_dir)
         self.device = resolve_device(device)
         self._nets: Dict[Tuple[str, int], torch.nn.Module] = {}
         # scale -> [(member, weight)] served by ``fusion``, or None
@@ -227,22 +236,6 @@ class SuperResolutionModule:
         # scale -> the net zssr_prepare tuned there (in the compute type), and its record
         self.zssr_nets: Dict[int, torch.nn.Module] = {}
         self.zssr_info: Dict[int, Dict[str, Any]] = {}
-        self._load_saved()
-
-    def _load_saved(self) -> None:
-        """Add the trainer's state dicts under ``config.checkpoint_dir``
-        (``{name}_x{scale}.pt`` of a registry net or ``cond_polish``) to
-        ``weights``, unless weights for that net were handed in."""
-        d = self.config.checkpoint_dir
-        if not d or not os.path.isdir(os.path.expanduser(d)):
-            return
-        for fname in sorted(os.listdir(os.path.expanduser(d))):
-            m = re.fullmatch(r"(.+)_x(\d+)\.pt", fname)
-            if m is None or (m[1] not in MODEL_REGISTRY and m[1] != "cond_polish"):
-                continue
-            key = (m[1], int(m[2]))
-            if key not in self.weights:
-                self.weights[key] = load_checkpoint(key[0], key[1], d)
 
     # -- nets ---------------------------------------------------------------
     def is_trained(self, name: str, scale: int) -> bool:
@@ -298,6 +291,10 @@ class SuperResolutionModule:
         "cond_polish") at ``scale``, built once from its weights."""
         key = self._key(role, scale, model)
         if key not in self._nets:
+            if key not in self.weights and key not in _WARNED_UNTRAINED:
+                _WARNED_UNTRAINED.add(key)
+                logger.warning("%s_x%d: no trained weights handed in, saved or in the store; "
+                               "serving the untrained net (bicubic, with IBP)", *key)
             self._nets[key], _ = build_model(
                 key[0], key[1], self.weights.get(key),
                 dtype=self.config.compute_dtype,
@@ -375,7 +372,7 @@ class SuperResolutionModule:
 
     def conditions(self, category: Optional[str]) -> bool:
         """Whether ``category`` runs the conditioned polish: a category asked
-        for and ``("cond_polish", 1)`` weights handed in."""
+        for and ``("cond_polish", 1)`` trained."""
         return category is not None and self.is_trained("cond_polish", 1)
 
     def build_nets(self, ladder, provider: str, model: Optional[str] = None,
@@ -514,7 +511,7 @@ class SuperResolutionModule:
     def _conditioned(self, out: torch.Tensor, category: Optional[str]) -> torch.Tensor:
         """The prompt-conditioned polish of ``out`` for ``category``,
         clipped to [0, 255]; ``out`` itself when no category is asked for
-        or the polish has no weights."""
+        or the polish is untrained."""
         if not self.conditions(category):
             return out
         net = self._net("cond_polish", 1)

@@ -294,8 +294,8 @@ class SuperResolutionPipeline:
     (``models.registry.convert_flax_params`` or ``seeded_params``); nets
     with weights count as trained. ``lpips_params`` maps ``"vgg"`` /
     ``"alex"`` to LPIPS feature state dicts
-    (``models.lpips.convert_lpips_params``); a net without one gets
-    seeded features.
+    (``models.lpips.convert_lpips_params``); a net without one gets the
+    store's trained features.
 
     The stage modules are built from ``SystemConfig.from_env()``, as the
     reference does: the environment's ``BLOCK_SIZE`` and ``OVERLAP_RATIO``
@@ -342,8 +342,9 @@ class SuperResolutionPipeline:
         if self.config.enable_qa:
             qa_device = (torch.device("cpu") if self.config.qa_device == "cpu"
                          else self.device)
-            self.quality_module = QualityAssessmentModule(
-                sys_cfg.quality, qa_device, LPIPSMetric(lpips_params, qa_device))
+            lpips = (LPIPSMetric(lpips_params, qa_device) if sys_cfg.quality.enable_lpips
+                     else None)
+            self.quality_module = QualityAssessmentModule(sys_cfg.quality, qa_device, lpips)
         # The scheduler books each job's tiles as tasks and drives the SR
         # stage's retry and degradation ladder; its agents are the CUDA
         # devices (on the CPU, the one device the pipeline runs on).

@@ -5,7 +5,9 @@ the ``calculate_*`` scalars, ``downsample_bicubic``, ``batch_evaluate``
 and the text and JSON reports (the same text line for line).
 
 The LPIPS level cut-offs are swapped for the calibrated values in
-``srs_tpu/qa/data/lpips_calib.json``, read by path from this checkout.
+``qa/data/lpips_calib.json`` (the reference's, copied). With
+``enable_lpips`` and no ``lpips_model`` the module scores LPIPS with the
+store's trained features, as the reference's does with its packaged ones.
 """
 
 from __future__ import annotations
@@ -73,9 +75,10 @@ def _fetch(vals: Dict[str, torch.Tensor]) -> Dict[str, float]:
 class QualityAssessmentModule:
     """Full- and no-reference image QA on ``device`` (the card by default).
 
-    ``lpips_model`` is an ``LPIPSMetric`` (``models/lpips.py``) or None,
-    which leaves the ``lpips_*`` keys out as the reference does when its
-    LPIPS cannot load."""
+    ``lpips_model`` is an ``LPIPSMetric`` (``models/lpips.py``). Without
+    one, ``config.enable_lpips`` builds the store's on the module's device
+    (reference module.py:84-92); with it off the ``lpips_*`` keys are left
+    out, as the reference does when its LPIPS cannot load."""
 
     def __init__(
         self,
@@ -87,6 +90,10 @@ class QualityAssessmentModule:
         self.thresholds = _calibrated_thresholds(self.config.thresholds)
         self.device = resolve_device(device)
         self._lpips = lpips_model
+        if self._lpips is None and self.config.enable_lpips:
+            from ..models.lpips import LPIPSMetric
+
+            self._lpips = LPIPSMetric(device=self.device)
 
     def _preprocess(self, image) -> torch.Tensor:
         """float32 [0, 255] HWC on the module's device. A tensor already

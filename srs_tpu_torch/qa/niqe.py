@@ -10,9 +10,9 @@ The G/AGGD shape parameter is the entry of a moment-ratio table (alpha
 from 0.2 to 10 in steps of 0.001) nearest the sample ratio, as the
 reference picks it; the table is built from ``math.lgamma`` in float64
 and rounded to float32. ``niqe_features`` and ``fit_pristine_model`` fit
-a pristine model of one's own from a set of images. The packaged models are read by path from
-``srs_tpu/qa/data`` in this checkout; the module beside them is never
-imported.
+a pristine model of one's own from a set of images. The packaged models
+are read from ``data/`` beside this module (``DATA_DIR``): byte-equal
+copies of the reference's ``srs_tpu/qa/data``.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ import numpy as np
 import torch
 
 from ..ops.filters import gaussian_blur
-from ..utils.paths import REFERENCE_DIR
 from .noref import _gray, mscn
 
 __all__ = [
@@ -42,7 +41,7 @@ __all__ = [
     "fit_pristine_model",
 ]
 
-DATA_DIR = os.path.join(REFERENCE_DIR, "qa", "data")
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 _ALPHA_GRID = np.arange(0.2, 10.001, 0.001)
 

@@ -1,8 +1,8 @@
-"""Where the port finds the reference package's data in its checkout.
+"""Where the JAX package lies in a checkout.
 
-The port reads these files by path and never imports the package beside
-them: ``srs_tpu/models/checkpoints/EVAL.json`` (the evidence ledger) and
-``srs_tpu/qa/data/`` (the NIQE, BRISQUE and LPIPS calibration files).
+The port reads nothing of it at run time: its ledgers, trained weights and
+QA data are its own copies (``models/checkpoints/``, ``qa/data/``).
+``REFERENCE_DIR`` lets the writers refuse a directory inside it.
 """
 
 import os

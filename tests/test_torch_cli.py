@@ -20,13 +20,13 @@ import numpy as np
 import pytest
 from PIL import Image
 
-import srs_tpu.models.registry as jax_registry
 from srs_tpu.pipeline import PipelineConfig as JaxConfig
 from srs_tpu.pipeline import SuperResolutionPipeline as JaxPipeline
 from srs_tpu_torch.cli import main
 from srs_tpu_torch.io.image import save_image
 from srs_tpu_torch.io.native import read_tiff
 from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+from torch_packaged import packaged_in
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLENDS = ["laplacian", "multi_band", "weighted", "feather", "gradient_domain", "poisson"]
@@ -50,7 +50,7 @@ def png(tmp_path_factory):
 
 def _reference(png, out, monkeypatch, tmp_path, blend, post=False):
     """The reference's output as int16, its nets untrained."""
-    monkeypatch.setattr(jax_registry, "PACKAGED_CHECKPOINT_DIR", str(tmp_path / "none"))
+    packaged_in(monkeypatch, tmp_path / "none")
     cfg = JaxConfig(block_size=32, target_resolution="256x192", quality_model="edsr_m",
                     per_scale_selection=False, enable_qa=False, blend_method=blend,
                     enable_seam_repair=post, enable_color_correction=post, content_aware=post)

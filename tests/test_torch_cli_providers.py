@@ -14,12 +14,12 @@ import numpy as np
 import pytest
 from PIL import Image
 
-import srs_tpu.models.registry as jax_registry
 from srs_tpu.pipeline import PipelineConfig as JaxConfig
 from srs_tpu.pipeline import SuperResolutionPipeline as JaxPipeline
 from srs_tpu_torch.cli import main
 from srs_tpu_torch.io.native import read_tiff
 from test_torch_cli import FLAGS, _close, png  # noqa: F401 - the fixture
+from torch_packaged import packaged_in
 
 # (flags, the reference's config, the reference's prompt)
 CASES = {
@@ -37,7 +37,7 @@ CASES = {
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_flag_matches_reference(png, tmp_path, monkeypatch, capsys, case):
     flags, ref_cfg, prompt = CASES[case]
-    monkeypatch.setattr(jax_registry, "PACKAGED_CHECKPOINT_DIR", str(tmp_path / "none"))
+    packaged_in(monkeypatch, tmp_path / "none")
     cfg = dict(block_size=32, target_resolution="256x192", quality_model="edsr_m",
                per_scale_selection=False, enable_qa=False)
     cfg.update(ref_cfg)

@@ -22,13 +22,14 @@ import torch
 from PIL import Image
 
 import srs_tpu.models.generate as jgen
-import srs_tpu.models.registry as jax_registry
 import srs_tpu.pipeline as jax_pipeline
 from srs_tpu.cli import main as jax_main
 from srs_tpu_torch import bench
 from srs_tpu_torch.cli import main
 from srs_tpu_torch.io.image import load_image
+from srs_tpu_torch.models import registry
 from srs_tpu_torch.utils.flops import chip_peak_flops
+from torch_packaged import packaged_in
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -60,9 +61,14 @@ def test_info_has_the_reference_keys_and_nets(args, capsys, tmp_path):
     assert set(got) == set(want) == {"version", "backend", "devices", "models", "config"}
     assert got["version"] == want["version"]
     assert sorted(got["models"]) == sorted(want["models"])
+    stored = registry.store_manifest()
     for name, entry in got["models"].items():
         assert set(entry) == set(want["models"][name]) == {"description", "trained_scales"}
-        assert entry["trained_scales"] == "untrained (bicubic floor + IBP)"
+        # the store's scales of the net, each packaged in the reference too
+        scales = sorted(s for s in (1, 2, 3, 4) if f"{name}_x{s}.pt" in stored)
+        assert entry["trained_scales"] == (scales or "untrained (bicubic floor + IBP)")
+        assert set(scales) <= set(want["models"][name]["trained_scales"]), name
+    assert got["models"]["edsr_xl"]["trained_scales"] == [3, 4]
     if torch.cuda.is_available():
         assert got["backend"] == "cuda"
     else:
@@ -73,7 +79,8 @@ def test_info_has_the_reference_keys_and_nets(args, capsys, tmp_path):
         assert got["config"] == want["config"] == "use --config"
 
 
-def test_info_counts_the_nets_saved_in_the_checkpoint_dir(capsys, tmp_path):
+def test_info_counts_the_nets_saved_in_the_checkpoint_dir(capsys, tmp_path, monkeypatch):
+    packaged_in(monkeypatch, tmp_path / "none")  # the store's nets would join them
     for f in ("espcn_x2.pt", "espcn_x4.pt", "edsr_xl_x3.pt", "ark_gen_x1.pt", "notes.txt"):
         (tmp_path / f).write_bytes(b"")
     assert main(["info", "--checkpoint-dir", str(tmp_path)]) == 0
@@ -138,7 +145,7 @@ def test_bench_line_has_the_reference_keys(ref_bench, tmp_path, monkeypatch, cap
         monkeypatch.setenv(k, v)
     monkeypatch.setenv("HOME", str(tmp_path / "home"))
     # every net untrained on both sides: the reference's packaged nets hidden
-    monkeypatch.setattr(jax_registry, "PACKAGED_CHECKPOINT_DIR", str(tmp_path / "none"))
+    packaged_in(monkeypatch, tmp_path / "none")
     real_cfg = jax_pipeline.PipelineConfig
 
     monkeypatch.setattr(jax_pipeline, "PipelineConfig",

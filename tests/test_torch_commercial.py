@@ -156,6 +156,14 @@ def _ref_module():
     return mod
 
 
+def _port_module():
+    """The port's module with LPIPS off, as ``_ref_module``'s (each builds
+    its packaged LPIPS by default)."""
+    mod = TQ(device="cpu")
+    mod._lpips = None
+    return mod
+
+
 def test_module_evaluate_commercial_matches_reference(images):
     """With the brand's delta-E level, for a colour near and one far."""
     rois = ROIS + [{"type": "brand", "bbox": [40, 20, 10, 10],
@@ -174,7 +182,7 @@ def test_module_evaluate_commercial_matches_reference(images):
 
 def test_module_scalars_match_reference(images):
     a, b = images
-    got, ref = TQ(device="cpu"), _ref_module()
+    got, ref = _port_module(), _ref_module()
     assert abs(got.calculate_psnr(a, b) - ref.calculate_psnr(a, b)) <= PSNR_ATOL
     assert abs(got.calculate_psnr(a, b, 100.0) - ref.calculate_psnr(a, b, 100.0)) <= PSNR_ATOL
     for fn in ("calculate_ssim", "calculate_ms_ssim"):
@@ -192,7 +200,7 @@ def test_module_scalars_match_reference(images):
 
 def test_batch_evaluate_takes_the_scale_factor(images):
     a, b = images
-    mod = TQ(device="cpu")
+    mod = _port_module()
     one = mod.evaluate_full_reference(a, b, scale_factor=2)
     batch = mod.batch_evaluate([(a, b), (b, a)], scale_factor=2)
     # (the 0.1 downsample of 64x80 is smaller than the SSIM window: NaN on

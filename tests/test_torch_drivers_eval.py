@@ -39,6 +39,7 @@ from srs_tpu_torch.drivers import (cond_panel, eval_ark, gen_quality, photo_eval
                                    routed_panel, train_ark)
 from srs_tpu_torch.models.train import save_checkpoint
 from test_torch_providers import converted
+from torch_packaged import port_store_in
 from torch_driver_helpers import (ReferenceGuard, load_script, one_torch_thread,  # noqa: F401
                                   reference_checkpoints_in)
 
@@ -71,11 +72,14 @@ def test_photo_eval_matches_reference(tmp_path, monkeypatch, capsys):
         assert set(g) == set(w)
 
 
-def test_reeval_matches_reference(tmp_path):
+def test_reeval_matches_reference(tmp_path, monkeypatch):
     import jax.numpy as jnp
 
     from srs_tpu.models.train import eval_on_holdout as jax_eval
 
+    # the port's store hidden: reeval scores every trained net, the stored
+    # ones too, as the reference's scores its packaged ones
+    port_store_in(monkeypatch, tmp_path / "none")
     save_checkpoint(converted("espcn", 2), "espcn", 2, str(tmp_path))
     got = reeval.main(["--cpu", str(tmp_path)])
     assert list(got) == ["espcn_x2"]

@@ -81,10 +81,18 @@ def test_untrained_upscale_tiles_runs_ibp_as_reference(steps):
     assert (np.abs(got - bicubic).max() > 1.0) == (steps > 0)
 
 
-def test_default_config_without_weights_writes_a_tiff(tmp_path):
+def test_default_config_without_weights_writes_a_tiff(tmp_path, monkeypatch):
     """The reference's defaults (edsr_xl, routing, per-scale selection, QA,
-    8 IBP steps) with no weights handed in: every net is untrained and
-    IBP runs on the last ladder step. Small target and block, on the CPU."""
+    8 IBP steps) with no weights handed in: a trained net of the store
+    serves the x3 step (this noisy input routes to edsr_l_robust), so no
+    IBP runs, as with the reference's packaged nets. Small target and
+    block, on the CPU."""
+    import srs_tpu_torch.models.sr_module as sr_module
+
+    calls = []
+    real = sr_module.back_project
+    monkeypatch.setattr(sr_module, "back_project",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
     img = _lr((40, 56, 3), 8)
     cfg = PipelineConfig(device="cpu", target_resolution="168x120", block_size=32)
     assert cfg.ibp_steps == 8 and cfg.quality_model == "edsr_xl"
@@ -93,5 +101,6 @@ def test_default_config_without_weights_writes_a_tiff(tmp_path):
     assert res.success, res.error_message
     assert read_tiff(res.output_path).shape == (120, 168, 3)
     assert pipe.last_run_info["ladder"] == [3]
-    assert not pipe.sr_module.is_trained("edsr_xl", 3)
+    assert pipe.last_run_info["models"] == ["edsr_l_robust"]
+    assert pipe.sr_module.is_trained("edsr_l_robust", 3) and calls == []
     assert np.isfinite(res.quality_score)

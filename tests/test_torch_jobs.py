@@ -32,7 +32,6 @@ import numpy as np
 import pytest
 from PIL import Image
 
-import srs_tpu.models.registry as jax_registry
 from srs_tpu.pipeline import PipelineConfig as JaxConfig
 from srs_tpu.pipeline import SuperResolutionPipeline as JaxPipeline
 from srs_tpu_torch.cli import main
@@ -43,6 +42,7 @@ from srs_tpu_torch.scheduler import VIPLevel
 from srs_tpu_torch.tiling.cache import TileStore
 from srs_tpu_torch.tiling.geometry import compute_layout
 from test_torch_providers import PACKAGED, converted
+from torch_packaged import packaged_in
 
 RESUME_LSB = 2.0
 CFG = dict(block_size=64, overlap_ratio=0.2, target_resolution="320x240", num_pyramid_levels=4,
@@ -76,7 +76,7 @@ def _reference(tmp_path, monkeypatch, **cfg):
         d.mkdir()
         for s in (2, 3, 4):
             os.symlink(os.path.join(PACKAGED, f"espcn_x{s}"), d / f"espcn_x{s}")
-    monkeypatch.setattr(jax_registry, "PACKAGED_CHECKPOINT_DIR", str(tmp_path / "none"))
+    packaged_in(monkeypatch, tmp_path / "none")
     pipe = JaxPipeline(JaxConfig(**{**CFG, **cfg}))
     pipe._ensure_engine()
     pipe.sr_module.config.checkpoint_dir = str(d)

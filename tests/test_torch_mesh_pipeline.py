@@ -27,7 +27,6 @@ import pytest
 import torch
 from PIL import Image
 
-import srs_tpu.models.registry as jax_registry
 from srs_tpu.parallel import finalize as jax_finalize
 from srs_tpu.parallel import halo as jax_halo
 from srs_tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -38,6 +37,7 @@ from srs_tpu_torch.io.image import save_image
 from srs_tpu_torch.io.native import read_tiff
 from srs_tpu_torch.parallel import MeshTileDispatcher, make_mesh
 from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+from torch_packaged import packaged_in
 
 # tests/test_pipeline.py's _cfg, less the knobs the port lacks
 CFG = dict(block_size=64, overlap_ratio=0.2, target_resolution="320x240", provider="bicubic",
@@ -82,7 +82,7 @@ def _port(path, out, **kw):
 
 
 def test_data_mesh_matches_reference(input_png, tmp_path, monkeypatch):
-    monkeypatch.setattr(jax_registry, "PACKAGED_CHECKPOINT_DIR", str(tmp_path / "none"))
+    packaged_in(monkeypatch, tmp_path / "none")
     jpipe = JaxPipeline(JaxConfig(**{**CFG, "provider": "fast", "mesh_shape": {"data": 8},
                                      "enable_qa": False}))
     jpipe._ensure_engine()

@@ -31,6 +31,7 @@ from srs_tpu_torch.models.sr_module import SuperResolutionModule, scale_ladder
 from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
 from srs_tpu_torch.tiling.tiling import TilingModule
 from test_torch_tile_store import load_reference_native
+from torch_packaged import packaged_in
 
 BF16_PSNR_FLOOR = 45.0
 TARGET = "720x720"
@@ -314,10 +315,12 @@ def test_bench_path_matches_reference(bench_weights, tmp_path, floor, route):
     assert set(written) == set(res.quality_report)
 
 
-def test_shrink_alpha_is_per_job(weights, tmp_path):
+def test_shrink_alpha_is_per_job(weights, tmp_path, monkeypatch):
     """Each job serves its own probe's alpha: jobs run in a row give what
     each gives alone (the reference keeps alpha on the pipeline between
-    jobs)."""
+    jobs). The store is hidden: its trained robust net would take the
+    noisy job."""
+    packaged_in(monkeypatch, tmp_path / "none")
     clean = _bench_image()
     noise = (np.random.default_rng(9).random((96, 112, 3)) * 255).astype(np.float32)
     cfg = dict(target_resolution="336x288", quality_model="edsr_m", compute_dtype="float32")

@@ -18,12 +18,12 @@ import numpy as np
 import pytest
 from PIL import Image
 
-import srs_tpu.models.registry as jax_registry
 from srs_tpu.pipeline import PipelineConfig as JaxConfig
 from srs_tpu.pipeline import SuperResolutionPipeline as JaxPipeline
 from srs_tpu_torch.io.native import read_tiff
 from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
 from test_torch_providers import PACKAGED, converted
+from torch_packaged import packaged_in
 
 TARGETS = {2: "96x64", 3: "144x96"}
 
@@ -46,7 +46,7 @@ def run_both(image, tmp_path, monkeypatch, trained, scale, prompt=None, hook=Non
     for name, s in trained:
         os.symlink(os.path.join(PACKAGED, f"{name}_x{s}"), d / f"{name}_x{s}")
     weights = {key: converted(*key) for key in trained}
-    monkeypatch.setattr(jax_registry, "PACKAGED_CHECKPOINT_DIR", str(tmp_path / "none"))
+    packaged_in(monkeypatch, tmp_path / "none")
     common = dict(block_size=32, target_resolution=TARGETS[scale], auto_route=False,
                   enable_qa=False, ibp_steps=4)
     common.update(per_scale_selection=False, quality_model="edsr_m")

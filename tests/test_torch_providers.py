@@ -36,7 +36,7 @@ from srs_tpu.models.sr_module import UpscaleProvider as JaxProvider
 from srs_tpu.models.sr_module import VeImageXTemplate as JaxTemplate
 from srs_tpu.models.sr_module import _dihedral_ensemble as jax_ensemble
 from srs_tpu_torch.config import ModelConfig
-from srs_tpu_torch.models import fusion
+from srs_tpu_torch.models import evaljson, fusion
 from srs_tpu_torch.models.registry import convert_flax_params
 from srs_tpu_torch.models.selection import panel_best_model
 from srs_tpu_torch.models.sr_module import (
@@ -46,6 +46,7 @@ from srs_tpu_torch.models.sr_module import (
     VeImageXTemplate,
     _dihedral_ensemble,
 )
+from torch_packaged import packaged_in
 
 ATOL = 2e-3
 PACKAGED = jax_registry.PACKAGED_CHECKPOINT_DIR
@@ -76,7 +77,7 @@ def modules(tmp_path, monkeypatch, trained, **cfg):
     d.mkdir()
     for name, s in trained:
         os.symlink(os.path.join(PACKAGED, f"{name}_x{s}"), d / f"{name}_x{s}")
-    monkeypatch.setattr(jax_registry, "PACKAGED_CHECKPOINT_DIR", str(tmp_path / "none"))
+    packaged_in(monkeypatch, tmp_path / "none")
     cfg.setdefault("per_scale_selection", False)
     cfg.setdefault("quality_model", "edsr_m")
     ref = JaxSR(config=JaxModelConfig(checkpoint_dir=str(d), compute_dtype="float32",
@@ -139,7 +140,10 @@ def test_dihedral_ensemble_of_a_trained_net(tmp_path, monkeypatch):
 @pytest.mark.parametrize("scale", [2, 3, 4, 5])
 def test_load_fusion_reads_the_packaged_file(scale):
     assert fusion.load_fusion(scale) == jax_fusion.load_fusion(scale)
-    assert fusion.fusion_path() == jax_fusion.fusion_path()
+    # the store's copy of the reference's file
+    assert fusion.fusion_path() == os.path.join(evaljson.PACKAGED_EVAL_DIR, "FUSION.json")
+    with open(fusion.fusion_path(), "rb") as a, open(jax_fusion.fusion_path(), "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_fusion_file_in_checkpoint_dir_comes_first_and_bad_entries_read_as_none(tmp_path):

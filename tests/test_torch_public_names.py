@@ -32,6 +32,7 @@ from srs_tpu_torch.qa import niqe
 from srs_tpu_torch.utils.paths import REFERENCE_DIR
 from test_torch_providers import PACKAGED
 from test_torch_tile_store import load_reference_native
+from torch_packaged import packaged_in
 
 EXPORTS = {
     "models": ["EDSR", "ESPCN", "RCAN", "back_project", "depth_to_space",
@@ -146,14 +147,20 @@ def clean_caches():
 
 def test_checkpoint_probes_match_reference(tmp_path, monkeypatch, clean_caches):
     """A directory holding the reference's checkpoint of espcn x2 and of the
-    polish, and the port's state dicts of the same nets; the reference's
-    packaged directory hidden, as the port cannot read it."""
+    polish, and the port's state dicts of the same nets; both packages'
+    packaged nets hidden. Unhidden, the store answers for its nets as the
+    reference's packaged directory does."""
+    assert registry.PACKAGED_CHECKPOINT_DIR == os.path.join(
+        os.path.dirname(os.path.abspath(registry.__file__)), "checkpoints")
+    assert registry.is_pretrained("espcn", 3) is jax_registry.is_pretrained(
+        "espcn", 3, dtype=jnp.float32) is True
+    assert conditioning.is_cond_polish_trained() is jax_cond.is_cond_polish_trained() is True
     d = tmp_path / "ckpt"
     d.mkdir()
     for name in ("espcn_x2", "cond_polish_x1"):
         os.symlink(os.path.join(PACKAGED, name), d / name)
         torch.save({}, d / f"{name}.pt")
-    monkeypatch.setattr(jax_registry, "PACKAGED_CHECKPOINT_DIR", str(tmp_path / "none"))
+    packaged_in(monkeypatch, tmp_path / "none")
     empty = str(tmp_path / "empty")
     for name, scale, where in [("espcn", 2, str(d)), ("espcn", 3, str(d)), ("edsr_m", 2, str(d)),
                                ("espcn", 2, empty)]:
@@ -161,8 +168,6 @@ def test_checkpoint_probes_match_reference(tmp_path, monkeypatch, clean_caches):
             jax_registry.is_pretrained(name, scale, where, dtype=jnp.float32), (name, scale, where)
     assert conditioning.is_cond_polish_trained(str(d)) == jax_cond.is_cond_polish_trained(str(d))
     assert conditioning.is_cond_polish_trained(empty) == jax_cond.is_cond_polish_trained(empty)
-    assert registry.PACKAGED_CHECKPOINT_DIR == os.path.join(REFERENCE_DIR, "models",
-                                                            "checkpoints")
     # kept until the cache is cleared, as in the reference
     os.makedirs(empty)
     torch.save({}, os.path.join(empty, "espcn_x2.pt"))

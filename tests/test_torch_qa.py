@@ -183,9 +183,34 @@ def test_module_reports_match_reference(pair):
     ref_mod = RQ(lpips_model=None)
     ref_mod._lpips = None
     got_mod = TQ(device="cpu")
+    got_mod._lpips = None  # each module builds its packaged LPIPS by default
     assert dataclasses.asdict(got_mod.thresholds) == dataclasses.asdict(ref_mod.thresholds)
     _close(got_mod.evaluate_full_reference(a, _t(b)), ref_mod.evaluate_full_reference(a, b))
     _close(got_mod.evaluate_no_reference(b), ref_mod.evaluate_no_reference(b))
+
+
+def test_module_default_lpips_is_the_packaged_one(pair):
+    """With nothing handed in the module scores LPIPS with the store's
+    features, which are the reference's packaged ones converted: the same
+    distances as an ``LPIPSMetric`` handed the reference's restore (the
+    end-to-end default against the reference's own QA is
+    tests/test_torch_packaged_weights.py); ``enable_lpips`` off leaves
+    LPIPS out, as in the reference."""
+    from srs_tpu.models.lpips import LPIPSMetric as RefLPIPS
+    from srs_tpu_torch.config import QualityAssessmentConfig
+    from srs_tpu_torch.models.lpips import LPIPSMetric, convert_lpips_params
+
+    a, b = pair
+    mod = TQ(device="cpu")
+    got = mod.evaluate_full_reference(a, _t(b))
+    assert mod._lpips.sources == {"vgg": "store", "alex": "store"}
+    handed = LPIPSMetric({net: convert_lpips_params(jax.tree_util.tree_map(
+        np.asarray, RefLPIPS()._load_checkpoint(net))) for net in ("vgg", "alex")},
+        device="cpu")
+    for net in ("vgg", "alex"):
+        assert got[f"lpips_{net}"] == float(handed(_t(a), _t(b), net=net)), net
+    assert "lpips_level" in got
+    assert TQ(QualityAssessmentConfig(enable_lpips=False), device="cpu")._lpips is None
 
 
 def test_module_preprocess_scales_unit_range_and_passes_tensors():

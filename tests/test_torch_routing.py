@@ -30,6 +30,7 @@ from srs_tpu_torch.config import ModelConfig
 from srs_tpu_torch.models import routing as TR
 from srs_tpu_torch.models.registry import convert_flax_params, seeded_params
 from srs_tpu_torch.models.sr_module import SuperResolutionModule
+from torch_packaged import packaged_in
 
 EST_RTOL = 1e-5
 GAIN_ATOL_DB = 0.1
@@ -223,6 +224,7 @@ def test_pipeline_shrink_serves_texture_candidate(tmp_path, monkeypatch):
     (reference tests/test_routing.py, same monkeypatching)."""
     import srs_tpu_torch.models.routing as routing
 
+    packaged_in(monkeypatch, tmp_path / "none")  # the store holds edsr_l x2
     weights = {(n, 2): seeded_params(n, 2, seed=3) for n in ("edsr_m", "edsr_l_tex")}
     monkeypatch.setattr(routing, "probe_sr_alpha", lambda *a, **k: (-0.5, 0.4))
     seen = []

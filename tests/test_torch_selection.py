@@ -17,6 +17,7 @@ from srs_tpu.models.registry import is_pretrained
 from srs_tpu.models.sr_module import SuperResolutionModule as RSR
 from srs_tpu_torch.config import ModelConfig
 from srs_tpu_torch.models import evaljson as TE
+from srs_tpu_torch.models import registry
 from srs_tpu_torch.models import selection as TS
 from srs_tpu_torch.models.registry import seeded_params
 from srs_tpu_torch.models.sr_module import SuperResolutionModule
@@ -29,7 +30,9 @@ def _reference_trained(name, scale):
 
 
 def test_packaged_ledger_is_read_by_path():
-    assert os.path.realpath(TE.packaged_eval_dir()) == os.path.realpath(CKPT)
+    # the port's packaged ledger is the store's copy of the reference's
+    assert os.path.realpath(TE.packaged_eval_dir()) == os.path.realpath(
+        registry.PACKAGED_CHECKPOINT_DIR)
     assert TE.load_eval(TE.packaged_eval_dir()) == RE.load_eval(CKPT)
     assert TS.QUALITY_CANDIDATES == RS.QUALITY_CANDIDATES
 

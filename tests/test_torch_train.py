@@ -35,6 +35,7 @@ from srs_tpu_torch.models.registry import (build_model, convert_flax_params, ini
                                            load_checkpoint, seeded_params)
 from srs_tpu_torch.models.sr_module import SuperResolutionModule
 from srs_tpu_torch.config import ModelConfig
+from torch_packaged import packaged_in
 
 ATOL = 1e-4
 
@@ -282,7 +283,7 @@ def espcn16(monkeypatch):
                         registry.ModelSpec("espcn", ESPCN, {"features": 16}, spec.description))
 
 
-def test_train_synthetic_learns_logs_and_saves(espcn16, tmp_path):
+def test_train_synthetic_learns_logs_and_saves(espcn16, tmp_path, monkeypatch):
     corpus = np.stack([train_corpus_image(i) for i in range(4)])
     logged, losses = [], []
     state, loss = train.train_synthetic(
@@ -309,8 +310,13 @@ def test_train_synthetic_learns_logs_and_saves(espcn16, tmp_path):
     assert train._log_points(20, 50) == [50]
     assert train._log_points(4000, 50) == [1000, 2000, 3000, 4000]
     assert train._log_points(2500, 1000) == [1000, 2000]
-    sr = SuperResolutionModule(ModelConfig(checkpoint_dir=str(tmp_path), quality_model="espcn"),
-                               device="cpu")
+    # the saved net wins over the store's espcn x2; with the store hidden,
+    # only the saved scale is trained
+    cfg = ModelConfig(checkpoint_dir=str(tmp_path), quality_model="espcn")
+    sr = SuperResolutionModule(cfg, device="cpu")
+    assert torch.equal(sr.weights[("espcn", 2)]["conv_in.weight"], state["conv_in.weight"])
+    packaged_in(monkeypatch, tmp_path / "none")
+    sr = SuperResolutionModule(cfg, device="cpu")
     assert sr.is_trained("espcn", 2) and not sr.is_trained("espcn", 3)
 
 

@@ -30,6 +30,7 @@ from srs_tpu_torch.models.registry import load_checkpoint, seeded_params
 from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
 from srs_tpu_torch.tiling.geometry import compute_layout
 from test_torch_providers import modules
+from torch_packaged import packaged_in
 
 TUNE = dict(steps=3, patch=12, batch=4)
 
@@ -131,7 +132,8 @@ def big():
     return _image(seed=6, h=96, w=112)
 
 
-def test_process_zssr_equals_quality_with_the_tuned_weights(big, tmp_path):
+def test_process_zssr_equals_quality_with_the_tuned_weights(big, tmp_path, monkeypatch):
+    packaged_in(monkeypatch, tmp_path / "none")  # an untrained espcn base, as asked
     pipe = SuperResolutionPipeline(PipelineConfig(provider="zssr", zssr_steps=2, **PIPE))
     res = pipe.process(big, str(tmp_path / "zssr.tiff"))
     assert res.success, res.error_message
@@ -151,7 +153,8 @@ def test_process_zssr_equals_quality_with_the_tuned_weights(big, tmp_path):
     assert np.abs(read_tiff(res_u.output_path).astype(int) - read_tiff(res.output_path)).max() > 0
 
 
-def test_sr_gain_route_zssr_on_a_probe_negative_input(big, tmp_path):
+def test_sr_gain_route_zssr_on_a_probe_negative_input(big, tmp_path, monkeypatch):
+    packaged_in(monkeypatch, tmp_path / "none")  # edsr_m, the one trained net, is the base
     cfg = PipelineConfig(**{**PIPE, "auto_route": True, "sr_gain_route": "zssr",
                             "sr_gain_floor": 50.0, "zssr_steps": 1})
     pipe = SuperResolutionPipeline(cfg, {("edsr_m", 2): seeded_params("edsr_m", 2, seed=1)})

@@ -61,18 +61,21 @@ class ReferenceGuard:
 
 def reference_checkpoints_in(monkeypatch, path):
     """The reference reads its packaged checkpoints from ``path`` for the
-    rest of the test, with empty registry caches of its own (the registry
+    rest of the test (and the port its store, which is empty there unless
+    ``path`` holds a ``MANIFEST.json``: ``torch_packaged.packaged_in``),
+    with empty registry caches of its own (the registry
     keeps, per (net, scale, directory), what loaded). Its
     ``is_pretrained`` answers from the checkpoint directories present, as
     the real one finds them, without building each net it is asked about
     (a pipeline asks about a dozen, each a compile)."""
     import srs_tpu.models.registry as jax_registry
+    from torch_packaged import packaged_in
 
     def present(name, scale=2, checkpoint_dir=None, dtype=None):
         return any(os.path.isfile(os.path.join(d, f"{name}_x{scale}", "_CHECKPOINT_METADATA"))
                    for d in (checkpoint_dir, str(path)) if d)
 
-    monkeypatch.setattr(jax_registry, "PACKAGED_CHECKPOINT_DIR", str(path))
+    packaged_in(monkeypatch, path)
     monkeypatch.setattr(jax_registry, "_CACHE", {})
     monkeypatch.setattr(jax_registry, "_LOADED", {})
     monkeypatch.setattr(jax_registry, "is_pretrained", present)
