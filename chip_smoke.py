@@ -38,15 +38,22 @@ in order, each printing one JSON line with its seconds:
 7. packaged: the same configuration with nothing handed in, so the
    store (``srs_tpu_torch/models/checkpoints/``) serves its trained nets,
    as the reference serves its packaged checkpoints: every store file
-   against MANIFEST.json's sha256, the default path's reads timed; a
-   warm-up with every launch held against the plain version, then a run
+   against MANIFEST.json's sha256, and every weight file decoded from its
+   byte planes (``models/store.py``) to tensors of the manifest's
+   ``raw_sha256``, each file's decode seconds apart; the default path's
+   reads timed; a warm-up with every launch held against the plain
+   version, then a run
    with the counts reset: selection's pick from the store's EVAL.json
    (``edsr_xl`` at each x3 step), every served net trained and no IBP,
    the probe's gain and alpha, QA's ``lpips_vgg`` and ``lpips_alex`` from
    the store's features, MP/s, stage times and peak memory beside the
    seeded bench path's; then card against CPU on a small input (96x112
    -> 1008x864) in float32: TIFFs within 1 LSB, the probe within its
-   bfloat16 tolerances, the report within the CPU tests' tolerances;
+   bfloat16 tolerances, the report within the CPU tests' tolerances; and
+   with nothing handed in on a 48x64 input (32-px tiles), card against
+   CPU in float32: ``fusion`` at x2 and at x3 (every member of the
+   store's FUSION.json served trained from the store) and ``rcan`` at x3,
+   no IBP call, TIFFs within 1 LSB;
 8. cli_path: the command line, ``srs_tpu_torch.cli.main`` in this
    process, as a user runs ``python -m srs_tpu_torch process in.png
    out.tiff --target 100MP --blend multi_band --seam-repair
@@ -70,13 +77,15 @@ in order, each printing one JSON line with its seconds:
    seam detection and repair of a scene with medium and high seams, the
    same seams and canvases within 1e-3;
 11. providers: ``process()`` at full width (the 720x1280 input to the
-   100MP preset, QA, routing and selection off, weights seeded) for eight
-   serving cases: ``fusion`` with the x3 members of the store's
-   FUSION.json, ``quality`` with the dihedral self-ensemble,
+   100MP preset, QA, routing and selection off, weights seeded unless
+   named) for eight serving cases: ``fusion`` with the x3 members of the
+   store's FUSION.json, nothing handed in (the store's trained members),
+   ``quality`` with the dihedral self-ensemble,
    ``quality`` with ``prompt="food"`` and a seeded conditioned polish,
    ``hybrid`` with an untrained ``edsr_xl`` (the store hidden) and a
    seeded ``espcn_polish``,
-   ``fast`` with a seeded ``espcn``, ``rcan`` as the quality net, and the
+   ``fast`` with a seeded ``espcn``, ``rcan`` as the quality net (the
+   store's, nothing handed in), and the
    reference's remote names ``seedream`` (the quality path's nets, within
    1 LSB of its TIFF) and ``veimagex`` (the fast case's, within 1 LSB of
    its TIFF), each reporting itself as the provider that served. Each
@@ -87,8 +96,9 @@ in order, each printing one JSON line with its seconds:
    passes a step, and the prompt's pixels must differ from the quality
    path's;
 12. provider_reference: the eight cases on a small input (48x64 -> 192x144,
-   one x3 step), card against CPU in float32: TIFFs within 1 LSB and the
-   same nets and passes; and fusion in bfloat16, held to a PSNR floor;
+   one x3 step), card against CPU in float32 (``fusion`` and ``rcan`` in
+   phase 7, on the store's nets): TIFFs within 1 LSB and the same nets
+   and passes; and fusion in bfloat16, held to a PSNR floor;
 13. jobs: the job layer at full width on the quality path's flags:
    ``degrade`` (a real CUDA OOM after the real net in every quality-net
    call: retries, then degradation to ``fast`` with a seeded ``espcn`` at
@@ -153,8 +163,9 @@ in order, each printing one JSON line with its seconds:
    process, a warm-up with every K1/K2 launch held against the plain
    version, then its timed ``process()`` with the counts reset: MP/s,
    ``mfu_pct`` and ``chip_kind`` (``utils/flops.py``), the stage times;
-   ``info`` (backend cuda, the card among its devices); ``warmup`` at its
-   defaults, listing the store's trained scales; ``process --profile DIR``
+   ``info`` (backend cuda, the card among its devices, every scale of
+   fusion's members, ``rcan``, ``edsr_m`` and ``ark_gen`` listed trained
+   from the store); ``warmup`` at its defaults; ``process --profile DIR``
    on the bench input, whose trace must name K1's and K2's device kernels.
    All of them serve the store's nets;
 20. generate: generation at the packaged generator's width (base 64,
@@ -168,7 +179,9 @@ in order, each printing one JSON line with its seconds:
    the refinement, three times: the seconds of the sample, the SR ladder
    and the refinement apart, its tile count, peak memory, the same seed
    within 1 LSB, another class moving it well above that reproduction
-   noise;
+   noise; then ``ARKImageGenerator`` with no checkpoint directory and
+   nothing handed in, twice at 1K: the store's trained generator must
+   serve (``ark_gen-ddim`` at its 128 px), with its sample seconds;
 21. generate_reference: the generator card against CPU at the CPU tests'
    sizes, float32 with TF32 off: the UNet, ``sample_ark`` and
    ``refine_ark`` with the draws handed in, one batch's loss and
@@ -347,7 +360,16 @@ MAIN_OUT = (12245, 6887)  # (width, height) of the 100MP preset at 16:9
 
 # The store's files the default path reads (srs_tpu_torch/models/
 # checkpoints/): the x3 net that selection serves, and the LPIPS features.
-PACKAGED_READS = ("edsr_xl_x3.pt", "lpips_vgg.pt", "lpips_alex.pt")
+PACKAGED_READS = ("edsr_xl_x3.srsw", "lpips_vgg.srsw", "lpips_alex.srsw")
+STORE_NETS = 22  # every net the reference packages, the generator and LPIPS among them
+# The store's nets held card against CPU with nothing handed in (phase 7):
+# name -> (config flags, the one ladder step).
+STORE_CASES = {"fusion_x2": (dict(provider="fusion"), 2),
+               "fusion_x3": (dict(provider="fusion"), 3),
+               "rcan_x3": (dict(quality_model="rcan"), 3)}
+# What ``info`` must list trained from the store (phase 19).
+INFO_TRAINED = {"edsr_xl": [2, 3, 4], "edsr_l": [2, 3], "edsr_l_robust": [2, 3],
+                "rcan": [2, 3, 4], "edsr_m": [2, 3, 4], "espcn": [2, 3, 4], "ark_gen": [1]}
 # Card against CPU for the fusion case in bfloat16 (weights up to 1.31 in
 # magnitude scale each member's bf16 difference between cuDNN and the
 # CPU): PSNR between the two TIFFs, measured near 69 dB on an H100; the
@@ -966,12 +988,15 @@ def ibp_calls():
 
 def store_check(torch) -> dict:
     """The store as the card's copy holds it: every file of MANIFEST.json
-    present with its bytes and sha256; then the default path's reads
-    (``PACKAGED_READS``, each checked against the manifest and loaded)
+    present with its bytes and sha256, and every weight file decoded from
+    its byte planes to tensors of the manifest's ``raw_sha256`` (each
+    file's decode seconds apart); then the default path's reads
+    (``PACKAGED_READS``, each checked against the manifest and decoded)
     timed from cold."""
     import hashlib
 
     from srs_tpu_torch.models import registry
+    from srs_tpu_torch.models.store import SUFFIX, load_state, raw_sha256
 
     store = registry.PACKAGED_CHECKPOINT_DIR
     manifest = registry.store_manifest()
@@ -991,14 +1016,78 @@ def store_check(torch) -> dict:
     if bad:
         fail(f"packaged: store files differ from MANIFEST.json: {bad}")
     sha_s = time.time() - t0
+    decode_s, raw_s = {}, 0.0
+    for fname, entry in sorted(manifest.items()):
+        if not fname.endswith(SUFFIX):
+            continue
+        t0 = time.time()
+        state = load_state(os.path.join(store, fname))
+        decode_s[fname] = time.time() - t0
+        t0 = time.time()
+        if raw_sha256(state) != entry.get("raw_sha256"):
+            bad.append(fname)
+        raw_s += time.time() - t0
+    if bad or len(decode_s) != STORE_NETS:
+        fail(f"packaged: decoded tensors differ from MANIFEST.json's raw_sha256: {bad} "
+             f"({len(decode_s)} weight files)")
     registry.clear_param_cache()
     load_s = {}
     for fname in PACKAGED_READS:
         t0 = time.time()
         registry.load_packaged(fname)
         load_s[fname] = time.time() - t0
-    return {"files": len(manifest), "store_bytes": sum(e["bytes"] for e in manifest.values()),
-            "sha256_all_s": sha_s, "load_s": load_s, "load_total_s": sum(load_s.values())}
+    return {"files": len(manifest), "weight_files": len(decode_s),
+            "store_bytes": sum(e["bytes"] for e in manifest.values()),
+            "sha256_all_s": sha_s, "decode_s": decode_s,
+            "decode_total_s": sum(decode_s.values()), "raw_sha256_all_s": raw_s,
+            "load_s": load_s, "load_total_s": sum(load_s.values())}
+
+
+def store_nets_against_cpu(torch, tmp: str) -> dict:
+    """``STORE_CASES`` with nothing handed in on a 48x64 input (32-px
+    tiles), card against CPU in float32 with TF32 off: on both, the ladder
+    the case's one step, the expected members and passes, each served net
+    trained and no IBP call; the TIFFs within 1 LSB."""
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+
+    image = synthetic_image(48, 64, seed=6)
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, (flags, scale) in STORE_CASES.items():
+        want = ([["rcan", 1]] if flags.get("quality_model") == "rcan"
+                else fusion_members(scale))
+        got = {}
+        for device in ("cuda", "cpu"):
+            cfg = PipelineConfig(block_size=32, target_resolution=f"{64 * scale}x{48 * scale}",
+                                 compute_dtype="float32", device=device, **QUALITY_FLAGS,
+                                 **flags)
+            path = os.path.join(tmp, f"store_{name}_{device}.tiff")
+            t0 = time.time()
+            with ibp_calls() as ibp:
+                pipe = SuperResolutionPipeline(cfg, {})
+                res = pipe.process(image, path)
+            if not res.success:
+                fail(f"packaged: {name} on {device}: {res.error_message}")
+            info = pipe.last_run_info
+            untrained = [m for m, _ in info["step_members"][0]
+                         if not pipe.sr_module.is_trained(m, scale)]
+            if info["ladder"] != [scale] or info["step_members"] != [want] or untrained \
+                    or ibp:
+                fail(f"packaged: {name} on {device}: ladder {info['ladder']}, step members "
+                     f"{info['step_members']} (want {[want]}), untrained {untrained}, "
+                     f"{len(ibp)} IBP calls")
+            got[device] = (read_tiff(path).astype(np.int16), time.time() - t0)
+            os.remove(path)
+        diff = np.abs(got["cuda"][0] - got["cpu"][0])
+        if got["cuda"][0].shape != (48 * scale, 64 * scale, 3) or diff.max() > 1:
+            fail(f"packaged: {name}: card against CPU shape {got['cuda'][0].shape}, max diff "
+                 f"{diff.max()} LSB")
+        out[name] = {"members": want, "max_lsb": int(diff.max()),
+                     "frac_differing": float((diff > 0).mean()),
+                     "seconds": [got["cuda"][1], got["cpu"][1]]}
+    torch.backends.cudnn.allow_tf32 = True
+    return out
 
 
 def packaged_phase(torch, K, tmp: str, image: np.ndarray, bench_nums: dict) -> dict:
@@ -1061,6 +1150,7 @@ def packaged_phase(torch, K, tmp: str, image: np.ndarray, bench_nums: dict) -> d
         fail(f"packaged: card and CPU disagree on the small input: shape "
              f"{got['cuda'][0].shape}, max diff {diff.max()} LSB")
     small_cmp = compare_bench_runs(*got["cuda"][1:3], *got["cpu"][1:3])
+    store_cases = store_nets_against_cpu(torch, tmp)
     seeded_report = bench_nums["report"]
     nums.update(
         store=store, provider=info["provider"], ladder=info["ladder"], models=info["models"],
@@ -1077,6 +1167,7 @@ def packaged_phase(torch, K, tmp: str, image: np.ndarray, bench_nums: dict) -> d
         card_against_cpu={"max_lsb": int(diff.max()),
                           "frac_differing": float((diff > 0).mean()),
                           "seconds": [got["cuda"][3], got["cpu"][3]], **small_cmp},
+        store_nets_against_cpu=store_cases,
     )
     return nums
 
@@ -1374,39 +1465,42 @@ UNTRAINED_CASES = ("hybrid",)
 
 def provider_cases() -> dict:
     """The eight serving cases: name -> (config flags, weights, prompt).
-    Every fusion member of the store's FUSION.json is seeded at x3,
-    edsr_xl at x2/x3/x4 (the ladder's nets); the reference's remote names
-    ``seedream`` and ``veimagex`` serve the quality path's and the fast
-    case's nets."""
+    ``fusion`` and ``rcan`` take nothing handed in, so the store's trained
+    nets serve them (every member of the store's FUSION.json at x3);
+    the others seeded edsr_xl at x2/x3/x4 (the ladder's nets); the
+    reference's remote names ``seedream`` and ``veimagex`` serve the
+    quality path's and the fast case's nets."""
     from srs_tpu_torch.models.registry import seeded_params
 
     xl = xl_weights()
-    members = {(m, 3): seeded_params(m, 3, seed=20 + i)
-               for i, m in enumerate(("edsr_l", "rcan", "edsr_m", "espcn"))}
     return {
-        "fusion": (dict(provider="fusion"), {**xl, **members}, None),
+        "fusion": (dict(provider="fusion"), {}, None),
         "self_ensemble": (dict(self_ensemble=True), xl, None),
         "prompt": ({}, {**xl, ("cond_polish", 1): seeded_params("cond_polish", 1, seed=30)},
                    "food"),
         "hybrid": (dict(provider="hybrid"),
                    {("espcn_polish", 1): seeded_params("espcn_polish", 1, seed=31)}, None),
         "fast": (dict(provider="fast"), fast_weights(), None),
-        "rcan": (dict(quality_model="rcan"),
-                 {("rcan", s): seeded_params("rcan", s, seed=50 + s) for s in (2, 3, 4)},
-                 None),
+        "rcan": (dict(quality_model="rcan"), {}, None),
         "seedream": (dict(provider="seedream"), xl, None),
         "veimagex": (dict(provider="veimagex"), fast_weights(), None),
     }
 
 
+def fusion_members(scale: int) -> list:
+    """[net, passes] of every trained member of the store's FUSION.json at
+    ``scale`` (8 passes for a "+" member)."""
+    from srs_tpu_torch.models.fusion import load_fusion
+
+    return [[m.rstrip("+"), 8 if m.endswith("+") else 1]
+            for m in load_fusion(scale)[0] if m != "bicubic"]
+
+
 def expected_members(name: str) -> list:
     """The [net, passes] each ladder step of a case must report (fusion's
     members from the store's FUSION.json at x3)."""
-    from srs_tpu_torch.models.fusion import load_fusion
-
-    fused = [[m.rstrip("+"), 8 if m.endswith("+") else 1]
-             for m in load_fusion(3)[0] if m != "bicubic"]
-    return {"fusion": fused, "self_ensemble": [["edsr_xl", 8]], "prompt": [["edsr_xl", 1]],
+    return {"fusion": fusion_members(3), "self_ensemble": [["edsr_xl", 8]],
+            "prompt": [["edsr_xl", 1]],
             "hybrid": [["edsr_xl", 1], ["espcn_polish", 1]], "fast": [["espcn", 1]],
             "rcan": [["rcan", 1]], "seedream": [["edsr_xl", 1]],
             "veimagex": [["espcn", 1]]}[name]
@@ -1470,7 +1564,9 @@ def provider_reference(torch, tmp: str) -> dict:
 
     image = synthetic_image(48, 64, seed=6)
     cases = provider_cases()
-    runs = [(name, "float32") for name in cases] + [("fusion", "bfloat16")]
+    # fusion and rcan in float32: the packaged phase's store cases
+    runs = [(name, "float32") for name in cases if name not in ("fusion", "rcan")] \
+        + [("fusion", "bfloat16")]
     torch.backends.cudnn.allow_tf32 = False
     out = {}
     for name, dtype in runs:
@@ -2642,9 +2738,8 @@ def subcommands(torch, K, tmp: str) -> dict:
         fail(f"subcommands: info exited {rc}: backend {info.get('backend')}, devices "
              f"{info.get('devices')}")
     trained = {name: m["trained_scales"] for name, m in info["models"].items()}
-    if trained["edsr_xl"] != [3, 4] or trained["espcn"] != [2, 3, 4] \
-            or trained["edsr_l_robust"] != [2, 3]:
-        fail(f"subcommands: info lists {trained}, not the store's nets")
+    if any(trained.get(name) != scales for name, scales in INFO_TRAINED.items()):
+        fail(f"subcommands: info lists {trained}, not the store's nets {INFO_TRAINED}")
     out["info"] = {"seconds": time.time() - t0, "backend": info["backend"],
                    "devices": info["devices"], "trained_scales": trained}
 
@@ -2709,7 +2804,8 @@ def generate_phase(torch, tmp: str) -> dict:
     moving the image well above that (``GEN_CLASS_MOVES``)."""
     from srs_tpu_torch.io.image import image_size, load_image
     from srs_tpu_torch.models.generate import ARKImageConfig, ARKImageGenerator
-    from srs_tpu_torch.models.generative import ark_meta, make_class_corpus, train_ark
+    from srs_tpu_torch.models.generative import (ark_meta, clear_ark_cache, make_class_corpus,
+                                                 train_ark)
     from srs_tpu_torch.models.registry import load_checkpoint
     from srs_tpu_torch.tiling.geometry import compute_layout
 
@@ -2801,11 +2897,28 @@ def generate_phase(torch, tmp: str) -> dict:
         fail(f"generate: the same seed moves the image by {same}; another class "
              f"({r3.metadata['class']}) by {other}")
     tiles = compute_layout(2048, 2048, block_size=GEN["size"], overlap_ratio=0.25).num_tiles
+
+    # no checkpoint directory and nothing handed in: the store's generator
+    clear_ark_cache()
+    stored = ARKImageGenerator(device="cuda")
+    store_runs = []
+    for _ in range(2):
+        t0 = time.time()
+        r = stored.generate(GEN_PROMPT, ARKImageConfig(size="1K"))
+        r.metadata["wall_s"] = time.time() - t0
+        store_runs.append(r.metadata)
+        if r.metadata.get("model") != "ark_gen-ddim" or r.metadata["base_size"] != 128 \
+                or r.image.shape != (1024, 1024, 3) or not np.isfinite(r.image).all() \
+                or not float(r.image.std()) > 5.0:
+            fail(f"generate: with no checkpoint directory: {r.metadata} {r.image.shape}")
+    if ark_meta() != {"size": 128, "base": 64, "depth": 2}:
+        fail(f"generate: the store's ark_meta.json reads {ark_meta()}")
     return {
         "train": train, "cli": cli,
         "in_process": {"metadata": [r.metadata for r in runs], "refine_tiles": tiles,
                        "peak_mem_gb": peak, "same_seed_abs": same,
                        "other_class_abs": other},
+        "store_generator": {"metadata": store_runs, "ark_meta": ark_meta()},
     }
 
 

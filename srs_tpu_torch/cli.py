@@ -17,7 +17,9 @@ They take the reference's flags. ``--device`` (``cuda`` by default,
 dir}/{model}_x{scale}.pt``; ``process`` counts the nets saved in its
 checkpoint directory as trained, and ``generate`` reads the generator
 there (``ark_gen_x1.pt``, as ``models/generative.train_ark`` saves it).
-All default to ``~/.cache/srs_tpu_torch/models``. ``--checkpoint``
+All default to ``~/.cache/srs_tpu_torch/models``; a net or generator
+that is not there is read from the port's store of trained weights
+(``models/checkpoints/``). ``--checkpoint``
 keeps the upscaled tiles in the port's tile store
 (``~/.cache/srs_tpu_torch/tiling``) and resumes a re-run of the same job
 from them. ``--profile DIR`` writes a ``torch.profiler`` trace of the
@@ -166,8 +168,8 @@ def _cmd_warmup(args: argparse.Namespace) -> int:
 
 def _cmd_generate(args: argparse.Namespace) -> int:
     """Text-to-image through the learned generator (``ark_gen_x1.pt`` in
-    ``--checkpoint-dir``), or the procedural synthesizer when none is
-    trained there."""
+    ``--checkpoint-dir``, else the store's), or the procedural synthesizer
+    when there is none."""
     import numpy as np
 
     from .models.generate import ARKImageConfig, ARKImageGenerator
@@ -197,8 +199,9 @@ def _cmd_generate(args: argparse.Namespace) -> int:
 def _cmd_info(args: argparse.Namespace) -> int:
     """The reference's keys: ``backend`` is "cuda" or "cpu", ``devices``
     the torch device names, and a net's ``trained_scales`` the scales of
-    its ``.pt`` state dicts in the store (as the reference lists its
-    packaged ones) and under ``--checkpoint-dir``."""
+    its state dicts in the store (as the reference lists its packaged
+    ones) and under ``--checkpoint-dir``. ``models`` also lists the
+    generator, ``ark_gen``, which the reference's registry does not."""
     import json
     import re
 
@@ -207,16 +210,21 @@ def _cmd_info(args: argparse.Namespace) -> int:
     from . import __version__
     from .config import SystemConfig
     from .models.registry import MODEL_REGISTRY, store_manifest
+    from .models.store import SUFFIX
 
     ckpt = os.path.expanduser(args.checkpoint_dir)
     saved = [*store_manifest(), *(os.listdir(ckpt) if os.path.isdir(ckpt) else [])]
+    pattern = re.compile(r"(.+)_x(\d+)(\.pt|" + re.escape(SUFFIX) + ")")
+    found = [m for m in map(pattern.fullmatch, saved) if m is not None]
+    # name -> (description, what serves it untrained)
+    described = {**{n: (s.description, "bicubic floor + IBP") for n, s in MODEL_REGISTRY.items()},
+                 "ark_gen": ("class-conditional diffusion generator", "procedural synthesizer")}
     models = {}
-    for name, spec in MODEL_REGISTRY.items():
-        trained = sorted({int(m[2]) for m in (re.fullmatch(r"(.+)_x(\d+)\.pt", f) for f in saved)
-                          if m is not None and m[1] == name})
+    for name, (description, untrained) in described.items():
+        trained = sorted({int(m[2]) for m in found if m[1] == name})
         models[name] = {
-            "description": spec.description,
-            "trained_scales": trained or "untrained (bicubic floor + IBP)",
+            "description": description,
+            "trained_scales": trained or f"untrained ({untrained})",
         }
     cuda = torch.cuda.is_available()
     info = {

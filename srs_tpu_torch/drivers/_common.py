@@ -48,10 +48,10 @@ def trained_params(name: str, scale: int,
     """The state dict the port saved for ``name`` at ``scale`` in
     ``checkpoint_dir``, else the store's (the two places the reference's
     ``build_model`` looks), or None."""
-    from ..models.registry import load_checkpoint, load_packaged
+    from ..models.registry import load_checkpoint, load_packaged, store_name
 
     sd = load_checkpoint(name, scale, checkpoint_dir)
-    return sd if sd is not None else load_packaged(f"{name}_x{scale}.pt")
+    return sd if sd is not None else load_packaged(store_name(name, scale))
 
 
 def load_net(name: str, scale: int, checkpoint_dir: Optional[str],

@@ -14,10 +14,11 @@ distribution?
         [--steps 50] [--guidance 2.0] [--checkpoint-dir DIR] [--size S]
         [--cpu] [--no-write]
 
-Reads ``ark_gen_x1.pt`` from ``--checkpoint-dir`` (default
-``~/.cache/srs_tpu_torch/models``) and records the numbers under
-``ark_gen_x1`` in the EVAL.json there. ``main`` returns the report;
-``ok`` is false, and the command exits 1, without a trained generator.
+Reads ``ark_gen_x1.pt`` from ``--checkpoint-dir`` (without the flag,
+from ``~/.cache/srs_tpu_torch/models``, else the store's generator) and
+records the numbers under ``ark_gen_x1`` in the EVAL.json there. ``main``
+returns the report; ``ok`` is false, and the command exits 1, without a
+trained generator.
 """
 
 from __future__ import annotations
@@ -64,13 +65,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--no-write", action="store_true")
     args = ap.parse_args(argv)
 
-    from ..models.generative import (ARK_CLASSES, ark_meta, build_ark, is_ark_trained,
-                                     render_class, sample_ark)
+    from ..models.generative import (ARK_CLASSES, _saved_ark, ark_meta, build_ark,
+                                     is_ark_trained, render_class, sample_ark)
 
     device = device_of(args)
     ckdir = out_dir_of(args.checkpoint_dir)
-    if not is_ark_trained(ckdir):
-        # never a fallback: an old model must not be graded after a failed train
+    # an explicit directory must hold the checkpoint, never the store's
+    # fallback: an old model must not be graded after a failed train
+    found = _saved_ark(ckdir) is not None if args.checkpoint_dir else is_ark_trained(ckdir)
+    if not found:
         print(f"no ark_gen_x1.pt in {ckdir}", file=sys.stderr)
         return {"ok": False}
     module, _params, _trained = build_ark(ckdir, device=device)

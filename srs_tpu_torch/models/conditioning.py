@@ -131,15 +131,16 @@ def clear_cond_cache() -> None:
 
 def is_cond_polish_trained(checkpoint_dir: Optional[str] = None) -> bool:
     """Whether the port has trained polish weights: ``cond_polish_x1.pt`` in
-    ``checkpoint_dir``, else in the store (reference conditioning.py:158,
-    which looks in the same two places), kept per directory and store
-    until :func:`clear_cond_cache`."""
+    ``checkpoint_dir``, else ``cond_polish_x1.srsw`` in the store
+    (reference conditioning.py:158, which looks in the same two places),
+    kept per directory and store until :func:`clear_cond_cache`."""
     from . import registry
 
     key = (checkpoint_dir, registry.PACKAGED_CHECKPOINT_DIR)
     if key not in _CACHE:
         saved = registry.checkpoint_path("cond_polish", 1, checkpoint_dir) if checkpoint_dir else ""
-        _CACHE[key] = os.path.isfile(saved) or bool(registry.packaged_file("cond_polish_x1.pt"))
+        _CACHE[key] = os.path.isfile(saved) or bool(
+            registry.packaged_file(registry.store_name("cond_polish", 1)))
     return _CACHE[key]
 
 

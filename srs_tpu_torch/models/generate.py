@@ -4,14 +4,15 @@
 (``ARKImageConfig``, ``ARKImageResult``, sizes "1K", "2K", "4K" or "WxH",
 the watermark, the seed from the prompt's md5). Two backends serve it:
 
-- **learned**, when a trained generator is there (``ark_gen_x1.pt`` under
-  ``checkpoint_dir``, or ``weights[("ark_gen", 1)]`` handed in): the
+- **learned**, when a trained generator is there (``weights[("ark_gen",
+  1)]`` handed in, ``ark_gen_x1.pt`` under ``checkpoint_dir``, or the
+  store's, in that order; the store's is trained at 128 px): the
   class-conditional diffusion model of ``models/generative.py`` samples
   the native-size image for the prompt's class (DDIM with classifier-free
   guidance), the SR ladder of ``models/sr_module.py`` upscales it to the
   requested size, an exact-size bicubic resize finishes it, and with
   ``extra={"refine": True}`` SDEdit tiles add detail at the native size;
-- **procedural**, when no generator is trained, when the config's model
+- **procedural**, when there is no trained generator, when the config's model
   names the procedural synthesizer, or under ``SRS_ARK_PROCEDURAL=1``: a
   deterministic low-frequency synthesizer seeded from the prompt.
 
@@ -151,7 +152,8 @@ class ARKImageGenerator:
         and, the port's own, ``stage_seconds`` (sample, SR ladder, resize,
         refine; each ends in a synchronise on the card)."""
         from ..ops.resize import resize_bicubic
-        from .generative import ARK_CLASSES, ark_meta, build_ark, class_for_prompt, sample_ark
+        from .generative import (_DEFAULT_META, ARK_CLASSES, ark_meta, build_ark,
+                                 class_for_prompt, sample_ark)
         from .sr_module import scale_ladder
 
         handed = self.weights.get(("ark_gen", 1))
@@ -166,8 +168,8 @@ class ARKImageGenerator:
         # (default 7.5); this small model saturates lower, so map it into
         # [1, 4] around the same default.
         g = float(np.clip(1.0 + (cfg.guidance_scale - 1.0) * 0.25, 1.0, 4.0))
-        native = int(cfg.extra.get("base_size", ark_meta(
-            None if handed is not None else self.checkpoint_dir)["size"]))
+        native = int(cfg.extra.get("base_size", (
+            _DEFAULT_META if handed is not None else ark_meta(self.checkpoint_dir))["size"]))
         seconds: Dict[str, float] = {}
         t = time.time()
         base = sample_ark(module, cls, seed=seed, size=native, steps=steps, guidance=g)

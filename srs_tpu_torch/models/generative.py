@@ -17,9 +17,12 @@
   and horizontal flips, the reference's clip-then-Adam
   (``models/train.make_optimizer``) and an EMA of the weights, saved as
   ``ark_gen_x1.pt`` with an ``ark_meta.json`` sidecar.
-- :func:`build_ark` reads that checkpoint from a directory, or takes a
-  state dict handed in (:func:`convert_ark_params` turns the reference's
-  flax tree into one). The reference's orbax checkpoints are never read.
+- :func:`build_ark` takes a state dict handed in (:func:`convert_ark_params`
+  turns the reference's flax tree into one), else reads that checkpoint
+  from a directory, else the store's generator (``ark_gen_x1.srsw`` with
+  the store's ``ark_meta.json``, converted from the reference's packaged
+  one): the reference's order. The reference's orbax checkpoints are
+  never read.
 
 The reference draws its noise from ``jax.random``; the port draws from a
 ``torch.Generator`` seeded with the same integer, so the values differ.
@@ -561,7 +564,7 @@ def _save_ark(state: Mapping[str, torch.Tensor], checkpoint_dir: str, size: int,
     from .train import save_checkpoint
 
     path = save_checkpoint(state, "ark_gen", 1, checkpoint_dir)
-    meta = os.path.join(os.path.dirname(path), "ark_meta.json")
+    meta = os.path.join(os.path.dirname(path), ARK_META)
     with open(meta + ".tmp", "w") as f:
         json.dump({"size": size, "base": base, "depth": depth}, f)
     os.replace(meta + ".tmp", meta)
@@ -768,33 +771,50 @@ def refine_ark(
 
 _CACHE: Dict[Tuple, Tuple[Optional[CondUNet], Optional[Dict[str, torch.Tensor]], bool]] = {}
 _DEFAULT_META = {"size": 64, "base": 64, "depth": 2}
+ARK_META = "ark_meta.json"
 
 
 def clear_ark_cache() -> None:
     _CACHE.clear()
 
 
-def ark_meta(checkpoint_dir: Optional[str] = None) -> Dict[str, int]:
-    """The trained geometry of the checkpoint :func:`build_ark` would load
-    from ``checkpoint_dir``: its ``ark_meta.json`` (size, base, depth), or
-    64 px, base 64, depth 2 when there is no sidecar or no checkpoint."""
+def _saved_ark(checkpoint_dir: Optional[str]) -> Optional[str]:
+    """The path of ``ark_gen_x1.pt`` under ``checkpoint_dir``, if there."""
     from .registry import checkpoint_path
 
-    if checkpoint_dir and os.path.isfile(checkpoint_path("ark_gen", 1, checkpoint_dir)):
-        meta = os.path.join(os.path.dirname(checkpoint_path("ark_gen", 1, checkpoint_dir)),
-                            "ark_meta.json")
-        if os.path.isfile(meta):
-            with open(meta) as f:
-                return {k: int(v) for k, v in json.load(f).items()}
-    return dict(_DEFAULT_META)
+    path = checkpoint_path("ark_gen", 1, checkpoint_dir) if checkpoint_dir else None
+    return path if path and os.path.isfile(path) else None
+
+
+def ark_meta(checkpoint_dir: Optional[str] = None) -> Dict[str, int]:
+    """The trained geometry of the generator :func:`build_ark` would load
+    (reference generative.py:646): the ``ark_meta.json`` (size, base,
+    depth) beside ``ark_gen_x1.pt`` in ``checkpoint_dir``, else the
+    store's beside its generator; 64 px, base 64, depth 2 where the one
+    found has no sidecar, or where there is none."""
+    from . import registry
+
+    saved = _saved_ark(checkpoint_dir)
+    if saved is not None:
+        meta = os.path.join(os.path.dirname(saved), ARK_META)
+        meta = meta if os.path.isfile(meta) else None
+    elif registry.packaged_file(registry.store_name("ark_gen", 1)):
+        meta = registry.packaged_file(ARK_META, check_sha=True)
+    else:
+        meta = None
+    if meta is None:
+        return dict(_DEFAULT_META)
+    with open(meta) as f:
+        return {k: int(v) for k, v in json.load(f).items()}
 
 
 def is_ark_trained(checkpoint_dir: Optional[str] = None) -> bool:
-    """Whether ``checkpoint_dir`` holds a trained generator
-    (``ark_gen_x1.pt``)."""
-    from .registry import checkpoint_path
+    """Whether there is a trained generator: ``ark_gen_x1.pt`` under
+    ``checkpoint_dir``, or the store's."""
+    from . import registry
 
-    return bool(checkpoint_dir) and os.path.isfile(checkpoint_path("ark_gen", 1, checkpoint_dir))
+    return _saved_ark(checkpoint_dir) is not None or bool(
+        registry.packaged_file(registry.store_name("ark_gen", 1)))
 
 
 def build_ark(
@@ -808,13 +828,15 @@ def build_ark(
     """(module on ``device`` in eval mode, its state dict, trained).
 
     The weights are ``params`` when handed in (base and depth read from
-    their shapes), else ``ark_gen_x1.pt`` under ``checkpoint_dir`` (base
-    and depth from its ``ark_meta.json`` unless given). Without either
-    the result is ``(None, None, False)``: an untrained generator outputs
-    v = 0, so none is built. The weights do not depend on the sample size
-    (:func:`ark_meta` gives the trained one). Results from a checkpoint
-    directory are cached (:func:`clear_ark_cache`)."""
-    from .registry import load_checkpoint
+    their shapes), else ``ark_gen_x1.pt`` under ``checkpoint_dir``, else
+    the store's generator (base and depth from the ``ark_meta.json``
+    beside the one read, unless given). Without any the result is
+    ``(None, None, False)``: an untrained generator outputs v = 0, so none
+    is built. The weights do not depend on the sample size (:func:`ark_meta`
+    gives the trained one). Results read from a directory or the store are
+    cached (:func:`clear_ark_cache`); a stored generator at fault raises
+    ``registry.StoreError``."""
+    from . import registry
 
     dev = resolve_device(device)
     key = None
@@ -822,10 +844,13 @@ def build_ark(
         meta = ark_meta(checkpoint_dir)
         base = meta["base"] if base is None else base
         depth = meta["depth"] if depth is None else depth
-        key = (checkpoint_dir, base, depth, str(dev), str(dtype))
+        key = (checkpoint_dir, registry.PACKAGED_CHECKPOINT_DIR, base, depth, str(dev),
+               str(dtype))
         if key in _CACHE:
             return _CACHE[key]
-        params = load_checkpoint("ark_gen", 1, checkpoint_dir)
+        params = registry.load_checkpoint("ark_gen", 1, checkpoint_dir)
+        if params is None:
+            params = registry.load_packaged(registry.store_name("ark_gen", 1))
     else:
         base, depth = _geometry(params)
     if params is None:

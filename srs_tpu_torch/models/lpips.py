@@ -9,7 +9,7 @@ channel-normalized features.
 Weights: :func:`convert_lpips_params` turns a reference parameter tree
 (flax HWIO kernels) into a state dict; ``LPIPSMetric(params={"vgg": ...,
 "alex": ...})`` serves those. A net with no state dict handed in serves
-the store's ranking-trained features (``lpips_vgg.pt``, ``lpips_alex.pt``
+the store's ranking-trained features (``lpips_vgg.srsw``, ``lpips_alex.srsw``
 under ``registry.PACKAGED_CHECKPOINT_DIR``, converted from the
 reference's packaged ones), as the reference loads its own by default.
 Where the store holds none, the net gets seeded features: truncated-normal
@@ -134,11 +134,12 @@ class LPIPSMetric:
             if net not in _ARCHS:
                 raise KeyError(f"unknown LPIPS net {net!r}")
             from .registry import load_packaged
+            from .store import SUFFIX
 
             module = FeatureNet(**_ARCHS[net])
             sd, self.sources[net] = self.params.get(net), "handed"
             if sd is None:
-                sd, self.sources[net] = load_packaged(f"lpips_{net}.pt"), "store"
+                sd, self.sources[net] = load_packaged(f"lpips_{net}{SUFFIX}"), "store"
             if sd is None:
                 sd, self.sources[net] = seeded_lpips_params(net), "seeded"
             module.load_state_dict({k: v.float() for k, v in sd.items()})

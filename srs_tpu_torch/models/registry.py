@@ -13,12 +13,14 @@ Trained weights come, in this order, from (reference registry.py:106-134):
   (:func:`load_checkpoint`);
 - the store, ``PACKAGED_CHECKPOINT_DIR`` (``models/checkpoints/`` beside
   this module): float32 state dicts converted from the reference's
-  packaged checkpoints, its ``EVAL.json`` and ``FUSION.json``, and
-  ``MANIFEST.json`` with each file's bytes and sha256. The manifest says
-  what the store holds; a listed file that is missing, cut short or not
-  loadable raises :class:`StoreError` naming it (:func:`packaged_file`,
-  :func:`load_packaged`), where the reference would serve the net
-  untrained.
+  packaged checkpoints, each a ``{name}_x{scale}.srsw`` file in the
+  lossless byte-plane format of ``models/store.py``, its ``EVAL.json``,
+  ``FUSION.json`` and ``ark_meta.json``, and ``MANIFEST.json`` with each
+  file's bytes and sha256 (and a net's ``raw_sha256``, the hash of its
+  decoded tensors). The manifest says what the store holds; a listed file
+  that is missing, cut short or not decodable raises :class:`StoreError`
+  naming it (:func:`packaged_file`, :func:`load_packaged`), where the
+  reference would serve the net untrained.
 
 :func:`is_pretrained` asks whether a net has trained weights in either
 directory. :func:`build_model` counts handed-in parameters as trained
@@ -47,6 +49,7 @@ import torch
 from ..utils.device import resolve_device
 from .conditioning import CondPolish
 from .nets import EDSR, ESPCN, RCAN, shuffle_channel_order
+from .store import SUFFIX, StoreError, load_state, raw_sha256
 
 __all__ = [
     "ModelSpec",
@@ -62,6 +65,7 @@ __all__ = [
     "PACKAGED_CHECKPOINT_DIR",
     "MANIFEST_NAME",
     "StoreError",
+    "store_name",
     "store_manifest",
     "packaged_file",
     "load_packaged",
@@ -253,15 +257,16 @@ def load_checkpoint(name: str, scale: int,
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-class StoreError(RuntimeError):
-    """A file the store's manifest lists is missing, cut short or not
-    loadable."""
+def store_name(name: str, scale: int) -> str:
+    """The store's file name of ``name`` at ``scale``."""
+    return f"{name}_x{scale}{SUFFIX}"
 
 
 def store_manifest(store: Optional[str] = None) -> Dict[str, Dict[str, Any]]:
     """The manifest of the store in ``store`` (``PACKAGED_CHECKPOINT_DIR``
-    by default): file name -> ``{"bytes", "sha256", "source"}`` ({} where
-    the directory has no manifest). Read again when it changes."""
+    by default): file name -> ``{"bytes", "sha256", "source"}``, and
+    ``raw_sha256`` for a weight file ({} where the directory has no
+    manifest). Read again when it changes."""
     path = os.path.join(store or PACKAGED_CHECKPOINT_DIR, MANIFEST_NAME)
     try:
         st = os.stat(path)
@@ -310,28 +315,31 @@ def _sha256(path: str) -> str:
 
 
 def load_packaged(fname: str) -> Optional[Dict[str, torch.Tensor]]:
-    """The state dict of ``fname`` in the store (on the CPU), or None when
-    the manifest does not list it. The file's sha256 is checked against
-    the manifest's and it is read once per process; the tensors are shared
-    between callers, which copy them into their nets. Any fault raises
+    """The state dict of ``fname`` (a ``.srsw`` file) in the store, on the
+    CPU, or None when the manifest does not list it. The file's sha256 and
+    its decoded tensors' ``raw_sha256`` are checked against the manifest's
+    and it is read once per process; the tensors are shared between
+    callers, which copy them into their nets. Any fault raises
     :class:`StoreError` naming the file."""
     path = packaged_file(fname)
     if path is None:
         return None
-    key = (path, store_manifest()[fname]["sha256"])
+    entry = store_manifest()[fname]
+    key = (path, entry["sha256"])
     if key not in _PACKAGED:
         packaged_file(fname, check_sha=True)
-        try:
-            sd = torch.load(path, map_location="cpu", weights_only=True)
-        except Exception as e:  # noqa: BLE001 - any fault names the file
-            raise StoreError(f"{path}: not loadable ({type(e).__name__}: {e})") from e
+        sd = load_state(path)
+        if raw_sha256(sd) != entry.get("raw_sha256"):
+            raise StoreError(f"{path}: the decoded tensors' sha256 differs from the store's "
+                             "manifest")
         _PACKAGED[key] = sd
     return dict(_PACKAGED[key])
 
 
-def _net_file(fname: str) -> Optional[Tuple[str, int]]:
-    """(name, scale) of a saved net's file name, or None for another file."""
-    m = re.fullmatch(r"(.+)_x(\d+)\.pt", fname)
+def _net_file(fname: str, suffix: str = ".pt") -> Optional[Tuple[str, int]]:
+    """(name, scale) of a net's file name (saved ``.pt``, or the store's
+    ``suffix``), or None for another file."""
+    m = re.fullmatch(r"(.+)_x(\d+)" + re.escape(suffix), fname)
     if m is None or (m[1] not in MODEL_REGISTRY and m[1] != "cond_polish"):
         return None
     return m[1], int(m[2])
@@ -358,7 +366,7 @@ class TrainedWeights(MutableMapping):
                 if key is not None and key not in self._own:
                     self._lazy[key] = lambda k=key: load_checkpoint(k[0], k[1], d)
         for fname in sorted(store_manifest()):
-            key = _net_file(fname)
+            key = _net_file(fname, SUFFIX)
             if key is not None and key not in self._own and key not in self._lazy:
                 packaged_file(fname)
                 self._lazy[key] = lambda f=fname: load_packaged(f)
@@ -416,7 +424,7 @@ def is_pretrained(name: str, scale: int = 2, checkpoint_dir: Optional[str] = Non
     if key not in _LOADED:
         _LOADED[key] = bool(
             (checkpoint_dir and os.path.isfile(checkpoint_path(name, scale, checkpoint_dir)))
-            or packaged_file(f"{name}_x{scale}.pt"))
+            or packaged_file(store_name(name, scale)))
     return _LOADED[key]
 
 

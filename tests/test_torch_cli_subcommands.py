@@ -60,15 +60,22 @@ def test_info_has_the_reference_keys_and_nets(args, capsys, tmp_path):
     got = json.loads(capsys.readouterr().out)
     assert set(got) == set(want) == {"version", "backend", "devices", "models", "config"}
     assert got["version"] == want["version"]
-    assert sorted(got["models"]) == sorted(want["models"])
+    # the reference's nets, and the port's generator
+    assert sorted(got["models"]) == sorted([*want["models"], "ark_gen"])
     stored = registry.store_manifest()
     for name, entry in got["models"].items():
-        assert set(entry) == set(want["models"][name]) == {"description", "trained_scales"}
+        assert set(entry) == {"description", "trained_scales"}
         # the store's scales of the net, each packaged in the reference too
-        scales = sorted(s for s in (1, 2, 3, 4) if f"{name}_x{s}.pt" in stored)
-        assert entry["trained_scales"] == (scales or "untrained (bicubic floor + IBP)")
-        assert set(scales) <= set(want["models"][name]["trained_scales"]), name
-    assert got["models"]["edsr_xl"]["trained_scales"] == [3, 4]
+        scales = sorted(s for s in (1, 2, 3, 4) if registry.store_name(name, s) in stored)
+        assert scales and entry["trained_scales"] == scales, name
+        if name != "ark_gen":
+            assert set(entry) == set(want["models"][name])
+            assert scales == want["models"][name]["trained_scales"], name
+    # fusion's members, the pinned quality nets and the generator at every
+    # scale the reference packages
+    for name, scales in (("edsr_xl", [2, 3, 4]), ("edsr_l", [2, 3]), ("rcan", [2, 3, 4]),
+                         ("edsr_m", [2, 3, 4]), ("espcn", [2, 3, 4]), ("ark_gen", [1])):
+        assert got["models"][name]["trained_scales"] == scales, name
     if torch.cuda.is_available():
         assert got["backend"] == "cuda"
     else:
@@ -87,6 +94,8 @@ def test_info_counts_the_nets_saved_in_the_checkpoint_dir(capsys, tmp_path, monk
     models = json.loads(capsys.readouterr().out)["models"]
     assert models["espcn"]["trained_scales"] == [2, 4]
     assert models["edsr_xl"]["trained_scales"] == [3]
+    assert models["ark_gen"]["trained_scales"] == [1]
+    assert models["rcan"]["trained_scales"] == "untrained (bicubic floor + IBP)"
 
 
 def test_warmup_runs_a_tiny_configuration(capsys):

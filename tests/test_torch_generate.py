@@ -98,9 +98,12 @@ def test_generator_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
         tgen.generate_image("x", size="64x64")
 
 
-def test_untrained_generator_serves_procedural(tmp_path):
-    """No trained generator (an empty checkpoint directory, no weights):
-    the reference's rule serves the procedural image."""
+def test_untrained_generator_serves_procedural(tmp_path, monkeypatch):
+    """No trained generator (an empty checkpoint directory, no weights, the
+    store hidden): the reference's rule serves the procedural image."""
+    from torch_packaged import port_store_in
+
+    port_store_in(monkeypatch, tmp_path / "no_store")
     gen = tgen.ARKImageGenerator(checkpoint_dir=str(tmp_path), device="cpu")
     r = gen.generate("a weave pattern", tgen.ARKImageConfig(size="64x48", seed=3))
     assert r.metadata == {"model": "procedural-v1"}

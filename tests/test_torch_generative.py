@@ -329,7 +329,10 @@ def test_ema_update_matches_reference():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
 
 
-def test_train_ark_tiny_saves_reloads_and_warm_starts(tmp_path):
+def test_train_ark_tiny_saves_reloads_and_warm_starts(tmp_path, monkeypatch):
+    from torch_packaged import port_store_in
+
+    port_store_in(monkeypatch, tmp_path / "no_store")  # "none" below finds no generator
     x = np.stack([tg.render_class(i, c, 32) for c in range(8) for i in range(2)])
     y = np.asarray([c for c in range(8) for _ in range(2)], np.int32)
     logged, steps_seen = [], []

@@ -1,11 +1,13 @@
 """The port's store of trained weights (``srs_tpu_torch/models/checkpoints/``)
 against the reference's packaged checkpoints.
 
-Each ``.pt`` file is ``convert_flax_params`` (a net) or
-``convert_lpips_params`` (LPIPS features) of the reference's own restore
-on the CPU, bit for bit: the same keys, shapes and float32 values.
-``EVAL.json`` and ``FUSION.json`` are byte-equal copies, and
-``MANIFEST.json`` gives each file's bytes and sha256. The QA data files
+Each ``.srsw`` file (the byte-plane format of ``models/store.py``) is
+``convert_flax_params`` (a net), ``convert_lpips_params`` (LPIPS
+features) or ``convert_ark_params`` (the generator) of the reference's
+own restore on the CPU, bit for bit: the same keys, shapes and float32
+values. ``EVAL.json``, ``FUSION.json`` and ``ark_meta.json`` are
+byte-equal copies, and ``MANIFEST.json`` gives each file's bytes and
+sha256, and each net's ``raw_sha256``. The QA data files
 (``srs_tpu_torch/qa/data/``) are byte-equal copies of the reference's.
 
 End to end, the port's ``process()`` with nothing handed in (its store)
@@ -45,33 +47,42 @@ from srs_tpu.models import registry as jax_registry  # noqa: E402
 from srs_tpu_torch.models import registry  # noqa: E402
 from srs_tpu_torch.models.lpips import convert_lpips_params  # noqa: E402
 from srs_tpu_torch.models.registry import convert_flax_params  # noqa: E402
+from srs_tpu_torch.models.store import SUFFIX, raw_sha256, save_state  # noqa: E402
 
 REF_CKPT = os.path.join(REPO, "srs_tpu", "models", "checkpoints")
 STORE = os.path.join(REPO, "srs_tpu_torch", "models", "checkpoints")
 REF_QA_DATA = os.path.join(REPO, "srs_tpu", "qa", "data")
 PORT_QA_DATA = os.path.join(REPO, "srs_tpu_torch", "qa", "data")
 
-# The main path's nets: every preset's default quality route (edsr_xl at
-# x3 and x4), selection's x2 winner, routing's robust and texture nets, the
-# fast tier, and both polishes.
+# Every net the reference packages: the presets' quality routes (edsr_xl),
+# selection's picks (edsr_l, edsr_xl), routing's robust and texture nets,
+# fusion's members (edsr_xl, edsr_l, rcan, edsr_m, espcn), the pinned
+# quality models, the fast tier and both polishes.
 STORE_NETS = (
-    ("edsr_xl", 3), ("edsr_xl", 4), ("edsr_l", 2),
+    ("edsr_xl", 2), ("edsr_xl", 3), ("edsr_xl", 4), ("edsr_l", 2), ("edsr_l", 3),
     ("edsr_l_robust", 2), ("edsr_l_robust", 3), ("edsr_l_tex", 2),
+    ("edsr_m", 2), ("edsr_m", 3), ("edsr_m", 4), ("rcan", 2), ("rcan", 3), ("rcan", 4),
     ("espcn", 2), ("espcn", 3), ("espcn", 4),
     ("espcn_polish", 1), ("cond_polish", 1),
 )
 LPIPS_NETS = ("vgg", "alex")
-LEDGERS = ("EVAL.json", "FUSION.json")
-WEIGHT_FILES = tuple(f"{n}_x{s}.pt" for n, s in STORE_NETS) + tuple(
-    f"lpips_{n}.pt" for n in LPIPS_NETS)
+GENERATOR = "ark_gen_x1" + SUFFIX
+LEDGERS = ("EVAL.json", "FUSION.json", "ark_meta.json")
+WEIGHT_FILES = tuple(registry.store_name(n, s) for n, s in STORE_NETS) + tuple(
+    f"lpips_{n}{SUFFIX}" for n in LPIPS_NETS) + (GENERATOR,)
 QA_DATA_FILES = ("brisque_model.npz", "lpips_calib.json", "niqe_pristine.npz")
 
 
 def _reference_tree(fname):
     """The reference's restore of the checkpoint behind store file ``fname``
     on the CPU, leaves as numpy arrays."""
-    stem = fname[:-len(".pt")]
-    if stem.startswith("lpips_"):
+    stem = fname[:-len(SUFFIX)]
+    if stem == "ark_gen_x1":  # its packaged geometry, from ark_meta.json
+        from srs_tpu.models.generative import build_ark
+
+        _module, tree, trained = build_ark(None)
+        assert trained
+    elif stem.startswith("lpips_"):
         from srs_tpu.models.lpips import LPIPSMetric
 
         tree = LPIPSMetric()._load_checkpoint(stem[len("lpips_"):])
@@ -97,7 +108,11 @@ def _reference_tree(fname):
 
 
 def _converted(fname):
+    from srs_tpu_torch.models.generative import convert_ark_params
+
     tree = _reference_tree(fname)
+    if fname == GENERATOR:
+        return convert_ark_params(tree)
     return convert_lpips_params(tree) if fname.startswith("lpips_") else convert_flax_params(tree)
 
 
@@ -113,19 +128,20 @@ def write_store(out=STORE):
     """Convert every store file from the reference's checkpoints, copy the
     ledgers, and write MANIFEST.json."""
     os.makedirs(out, exist_ok=True)
-    files = {}
+    files, raw = {}, {}
     for fname in WEIGHT_FILES:
         sd = _converted(fname)
         assert all(v.dtype == torch.float32 for v in sd.values()), fname
-        torch.save(sd, os.path.join(out, fname))
-        files[fname] = os.path.join("srs_tpu", "models", "checkpoints", fname[:-len(".pt")])
+        raw[fname] = save_state(sd, os.path.join(out, fname))
+        files[fname] = os.path.join("srs_tpu", "models", "checkpoints", fname[:-len(SUFFIX)])
         print(f"{fname}: {os.path.getsize(os.path.join(out, fname))} bytes", flush=True)
     for fname in LEDGERS:
         shutil.copyfile(os.path.join(REF_CKPT, fname), os.path.join(out, fname))
         files[fname] = os.path.join("srs_tpu", "models", "checkpoints", fname)
     manifest = {
         fname: {"bytes": os.path.getsize(os.path.join(out, fname)),
-                "sha256": _sha256(os.path.join(out, fname)), "source": src}
+                "sha256": _sha256(os.path.join(out, fname)), "source": src,
+                **({"raw_sha256": raw[fname]} if fname in raw else {})}
         for fname, src in sorted(files.items())
     }
     with open(os.path.join(out, registry.MANIFEST_NAME), "w") as f:
@@ -149,13 +165,14 @@ def _reference_state(fname):
 
 @pytest.mark.parametrize("fname", WEIGHT_FILES)
 def test_store_file_is_the_reference_conversion(fname):
-    got = registry.load_packaged(fname)  # checks the manifest's bytes and sha256
+    got = registry.load_packaged(fname)  # checks the manifest's hashes
     want = _reference_state(fname)
     assert list(got) == list(want)
     for k, v in want.items():
         assert got[k].dtype == v.dtype == torch.float32, k
         assert got[k].shape == v.shape, k
         assert torch.equal(got[k], v), k
+    assert registry.store_manifest()[fname]["raw_sha256"] == raw_sha256(want)
 
 
 @pytest.mark.parametrize("fname", LEDGERS)
@@ -203,7 +220,13 @@ def test_defaults_read_the_store():
     for name, scale in STORE_NETS:
         assert registry.is_pretrained(name, scale), (name, scale)
     assert is_cond_polish_trained()
-    assert not registry.is_pretrained("rcan", 2)
+    assert not registry.is_pretrained("rcan", 5)
+    with open(os.path.join(STORE, registry.MANIFEST_NAME)) as f:
+        listed = set(json.load(f)["files"])
+    # every checkpoint the reference packages, in the one format
+    assert {f[:-len(SUFFIX)] for f in listed if f.endswith(SUFFIX)} | set(LEDGERS) == set(
+        os.listdir(REF_CKPT))
+    assert listed == set(WEIGHT_FILES) | set(LEDGERS)
 
 
 def _small_store(tmp_path, files):
@@ -219,22 +242,25 @@ def _small_store(tmp_path, files):
     return tmp_path
 
 
-@pytest.mark.parametrize("fault", ["missing", "cut_short", "altered", "not_loadable"])
+@pytest.mark.parametrize("fault", ["missing", "cut_short", "altered", "not_loadable",
+                                   "other_tensors"])
 def test_a_listed_file_at_fault_raises_naming_it(tmp_path, monkeypatch, fault):
     """No quiet fallback: a file the manifest lists that is missing, cut
-    short or not loadable raises StoreError naming it, in every reader."""
+    short, not decodable or decoding to other tensors than the manifest's
+    raw_sha256 raises StoreError naming it, in every reader."""
     from srs_tpu_torch.models import evaljson
     from srs_tpu_torch.models.evaljson import load_eval, packaged_eval_dir
     from srs_tpu_torch.models.lpips import LPIPSMetric
     from srs_tpu_torch.models.sr_module import SuperResolutionModule
     from torch_packaged import packaged_in
 
-    store = _small_store(tmp_path / "store", ["espcn_x2.pt", "lpips_alex.pt", "EVAL.json"])
+    nets = ("espcn_x2" + SUFFIX, "lpips_alex" + SUFFIX)
+    store = _small_store(tmp_path / "store", [*nets, "EVAL.json"])
     packaged_in(monkeypatch, store)
     monkeypatch.setattr(evaljson, "PACKAGED_EVAL_DIR", str(store))
     registry.clear_param_cache()
     manifest = json.loads((store / registry.MANIFEST_NAME).read_text())
-    for fname in ("espcn_x2.pt", "lpips_alex.pt", "EVAL.json"):
+    for fname in (*nets, "EVAL.json"):
         path = store / fname
         data = path.read_bytes()
         if fault == "missing":
@@ -243,7 +269,14 @@ def test_a_listed_file_at_fault_raises_naming_it(tmp_path, monkeypatch, fault):
             path.write_bytes(data[: len(data) // 2])
         elif fault == "altered":
             path.write_bytes(data[:-1] + bytes([data[-1] ^ 1]))
-        else:  # the manifest agrees with bytes torch cannot load
+        elif fault == "not_loadable":  # the manifest agrees with bytes no reader decodes
+            path.write_bytes(b"x" * len(data))
+            manifest["files"][fname]["sha256"] = _sha256(path)
+        elif fname in nets:  # a whole file of other tensors, its bytes and sha256 listed
+            other = {k: v + 1.0 for k, v in registry.load_packaged(fname).items()}
+            save_state(other, str(path))
+            manifest["files"][fname].update(bytes=path.stat().st_size, sha256=_sha256(path))
+        else:  # a ledger the manifest agrees with, not JSON
             path.write_bytes(b"x" * len(data))
             manifest["files"][fname]["sha256"] = _sha256(path)
     (store / registry.MANIFEST_NAME).write_text(json.dumps(manifest))
@@ -252,16 +285,17 @@ def test_a_listed_file_at_fault_raises_naming_it(tmp_path, monkeypatch, fault):
     with pytest.raises((registry.StoreError, ValueError), match="EVAL.json"):
         load_eval(packaged_eval_dir())
     if fault in ("missing", "cut_short"):  # found by the size check of every listing
-        with pytest.raises(registry.StoreError, match="espcn_x2.pt"):
+        with pytest.raises(registry.StoreError, match=nets[0]):
             registry.is_pretrained("espcn", 2)
-        with pytest.raises(registry.StoreError, match="espcn_x2.pt"):
+        with pytest.raises(registry.StoreError, match=nets[0]):
             SuperResolutionModule(device="cpu")
     else:  # found at the first read of the net
+        registry.clear_param_cache()
         sr = SuperResolutionModule(device="cpu")
         assert sr.is_trained("espcn", 2) and registry.is_pretrained("espcn", 2)
-        with pytest.raises(registry.StoreError, match="espcn_x2.pt"):
+        with pytest.raises(registry.StoreError, match=nets[0]):
             sr._net("fast", 2)
-    with pytest.raises(registry.StoreError, match="lpips_alex.pt"):
+    with pytest.raises(registry.StoreError, match=nets[1]):
         LPIPSMetric(device="cpu")._net("alex")
 
 
@@ -269,7 +303,7 @@ def test_an_unstored_net_is_untrained_with_one_warning(tmp_path, monkeypatch, ca
     from srs_tpu_torch.models import sr_module
     from torch_packaged import packaged_in
 
-    packaged_in(monkeypatch, _small_store(tmp_path / "store", ["espcn_x2.pt"]))
+    packaged_in(monkeypatch, _small_store(tmp_path / "store", ["espcn_x2" + SUFFIX]))
     monkeypatch.setattr(sr_module, "_WARNED_UNTRAINED", set())
     sr = sr_module.SuperResolutionModule(device="cpu")
     assert sr.is_trained("espcn", 2) and not sr.is_trained("espcn", 3)
@@ -331,8 +365,8 @@ def test_trained_weights_read_each_net_once_across_threads(tmp_path, monkeypatch
 
 
 # The store's share of the chip copy: the copy (tracked files less
-# .chiprunignore) must stay under 200 MB, and the rest of it is about 3 MB.
-STORE_BUDGET_BYTES = 160_000_000
+# .chiprunignore) must stay under 235 MB, and the rest of it is about 3 MB.
+STORE_BUDGET_BYTES = 225_000_000
 
 
 def _ignored(rel, pattern):
@@ -444,6 +478,142 @@ def test_default_process_matches_the_references_packaged_default(tmp_path, monke
     for net in ("vgg", "alex"):
         key = f"lpips_{net}"
         assert res.quality_report[key] == pytest.approx(jres.quality_report[key], rel=LPIPS_RTOL)
+
+
+# -- the nets the store gained: fusion, rcan, edsr_xl at x2, the generator ---
+
+SMALL_H, SMALL_W = 48, 64
+QUALITY_FLAGS = dict(auto_route=False, per_scale_selection=False, enable_qa=False)
+
+
+def _both_defaults(tmp_path, monkeypatch, scale, **flags):
+    """The reference's ``process()`` with its packaged checkpoints and the
+    port's with its store, nothing handed in on either side, on a 48x64
+    input with 64-px tiles, float32 on both sides. Returns (the port's
+    TIFF, the reference's, the port's run info, the reference's, the
+    port's pipeline, IBP calls on each side)."""
+    import srs_tpu.models.sr_module as ref_sr
+    import srs_tpu_torch.models.sr_module as port_sr
+    from srs_tpu.pipeline import PipelineConfig as JaxConfig
+    from srs_tpu.pipeline import SuperResolutionPipeline as JaxPipeline
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+    from test_torch_tile_store import load_reference_native
+
+    load_reference_native()
+    image = _e2e_image(SMALL_H, SMALL_W)
+    target = f"{SMALL_W * scale}x{SMALL_H * scale}"
+    ref_ibp, port_ibp = _count_ibp(monkeypatch, ref_sr), _count_ibp(monkeypatch, port_sr)
+    jpipe = JaxPipeline(JaxConfig(block_size=64, overlap_ratio=0.2, target_resolution=target,
+                                  **flags))
+    jpipe._ensure_engine()
+    jpipe.sr_module.config.compute_dtype = "float32"
+    jres = jpipe.process(image, str(tmp_path / "ref.tiff"))
+    assert jres.success, jres.error_message
+    pipe = SuperResolutionPipeline(PipelineConfig(block_size=64, target_resolution=target,
+                                                  compute_dtype="float32", device="cpu",
+                                                  **flags))
+    res = pipe.process(image, str(tmp_path / "out.tiff"))
+    assert res.success, res.error_message
+    got = read_tiff(str(tmp_path / "out.tiff")).astype(np.int16)
+    want = read_tiff(str(tmp_path / "ref.tiff")).astype(np.int16)
+    assert got.shape == want.shape == (SMALL_H * scale, SMALL_W * scale, 3)
+    return got, want, pipe.last_run_info, jpipe.last_run_info, pipe, ref_ibp, port_ibp
+
+
+@pytest.mark.parametrize("case", ["fusion_x2", "fusion_x3", "rcan_x3", "edsr_xl_x2"])
+def test_the_new_nets_serve_trained_as_the_references_packaged(case, tmp_path, monkeypatch):
+    """Fusion's members at x2 and x3, the pinned rcan at x3 and the pinned
+    edsr_xl at x2: nothing handed in, each served net trained from the
+    store, no back-projection, the TIFF within 1 LSB of the reference's."""
+    from srs_tpu_torch.models.fusion import load_fusion
+
+    name, scale = case.rsplit("_x", 1)
+    scale = int(scale)
+    flags = dict(QUALITY_FLAGS, **({"provider": "fusion"} if name == "fusion"
+                                   else {"quality_model": name}))
+    got, want, info, ref_info, pipe, ref_ibp, port_ibp = _both_defaults(
+        tmp_path, monkeypatch, scale, **flags)
+    for key in ("ladder", "provider", "models"):
+        assert info[key] == ref_info[key], key
+    if name == "fusion":  # the reference reports members for fusion alone
+        assert info["step_members"] == ref_info["step_members"]
+    assert info["ladder"] == [scale]
+    if name == "fusion":
+        members = [m.rstrip("+") for m in load_fusion(scale)[0] if m != "bicubic"]
+        assert info["provider"] == "fusion"
+        assert [m for m, _ in info["step_members"][0]] == members
+        assert {"rcan", "edsr_m", "edsr_l", "edsr_xl"} <= set(members)
+    else:
+        assert info["models"] == [name] and info["step_members"] == [[[name, 1]]]
+        members = [name]
+    assert all(pipe.sr_module.is_trained(m, scale) for m in members)
+    assert ref_ibp == [] and port_ibp == []
+    assert np.abs(got - want).max() <= 1
+
+
+_GENERATOR = {}
+
+
+def _reference_generator():
+    """The reference's packaged generator: (float32 module, params)."""
+    if not _GENERATOR:
+        from srs_tpu.models.generative import CondUNet, ark_meta
+
+        meta = ark_meta(None)
+        _GENERATOR["module"] = CondUNet(base=meta["base"], depth=meta["depth"],
+                                        dtype=jnp.float32)
+        _GENERATOR["params"] = jax.tree_util.tree_map(jnp.asarray, _reference_tree(GENERATOR))
+    return _GENERATOR["module"], _GENERATOR["params"]
+
+
+def test_the_generator_is_the_references_packaged_one():
+    """With nothing handed in the port's generator is the store's: bit
+    equal to the reference's restore converted, at its packaged geometry,
+    and one UNet forward within 1e-4 of the reference's."""
+    from srs_tpu.models.generative import ark_meta as ref_ark_meta
+    from srs_tpu_torch.models import generative as tg
+
+    tg.clear_ark_cache()
+    try:
+        assert tg.ark_meta() == ref_ark_meta(None) == {"size": 128, "base": 64, "depth": 2}
+        assert tg.is_ark_trained()
+        module, params, trained = tg.build_ark(None, device="cpu", dtype="float32")
+        assert trained and (module.base, module.depth) == (64, 2)
+        want = _reference_state(GENERATOR)
+        assert list(params) == list(want)
+        assert all(torch.equal(params[k], v) for k, v in want.items())
+        ref_module, ref_params = _reference_generator()
+        rng = np.random.default_rng(19)
+        x = rng.normal(size=(2, 16, 16, 3)).astype(np.float32)
+        t = np.asarray([0.3, 0.8], np.float32)
+        y = np.asarray([1, 8])
+        ref = np.asarray(ref_module.apply(ref_params, jnp.asarray(x), jnp.asarray(t),
+                                          jnp.asarray(y, jnp.int32)))
+        with torch.no_grad():
+            got = module(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(y)).numpy()
+        np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+    finally:
+        tg.clear_ark_cache()
+
+
+def test_generate_serves_the_stores_generator(tmp_path):
+    """``ARKImageGenerator`` with an empty checkpoint directory and nothing
+    handed in samples with the store's generator (cheaply: two DDIM steps
+    at 16 px, one x2 step of the store's edsr_xl)."""
+    from srs_tpu_torch.models import generative as tg
+    from srs_tpu_torch.models.generate import ARKImageConfig, ARKImageGenerator
+
+    tg.clear_ark_cache()
+    try:
+        gen = ARKImageGenerator(checkpoint_dir=str(tmp_path), device="cpu")
+        r = gen.generate("product shot of a watch", ARKImageConfig(
+            size="32x32", seed=5, extra={"steps": 2, "base_size": 16}))
+    finally:
+        tg.clear_ark_cache()
+    assert r.metadata["model"] == "ark_gen-ddim" and r.metadata["base_size"] == 16
+    assert r.metadata["sr_ladder"] == [2] and r.image.shape == (32, 32, 3)
+    assert np.isfinite(r.image).all() and r.image.std() > 0
 
 
 if __name__ == "__main__":

@@ -31,7 +31,7 @@ from srs_tpu_torch.models.sr_module import SuperResolutionModule, scale_ladder
 from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
 from srs_tpu_torch.tiling.tiling import TilingModule
 from test_torch_tile_store import load_reference_native
-from torch_packaged import packaged_in
+from torch_packaged import packaged_in, port_store_in
 
 BF16_PSNR_FLOOR = 45.0
 TARGET = "720x720"
@@ -112,9 +112,10 @@ def test_process_matches_reference_bf16(image, weights, tmp_path):
     assert _psnr(read_tiff(res.output_path), ref) >= BF16_PSNR_FLOOR
 
 
-def test_untrained_ladder_matches_reference_bicubic(image, tmp_path):
-    """Without weights the zero-tail nets are exact bicubic: the port's
-    ladder equals the reference's bicubic provider."""
+def test_untrained_ladder_matches_reference_bicubic(image, tmp_path, monkeypatch):
+    """Without weights (the store hidden) the zero-tail nets are exact
+    bicubic: the port's ladder equals the reference's bicubic provider."""
+    port_store_in(monkeypatch, tmp_path / "none")  # the store holds edsr_m
     ref, _ = _reference(image, str(tmp_path / "ref.png"), provider="bicubic")
     res = SuperResolutionPipeline(_port(ibp_steps=0)).process(image, str(tmp_path / "o.tiff"))
     assert res.success, res.error_message

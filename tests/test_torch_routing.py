@@ -196,11 +196,12 @@ def _small_pipeline(tmp_path, weights, **kw):
     return SuperResolutionPipeline(PipelineConfig(**{**cfg, **kw}), weights)
 
 
-def test_pipeline_routes_to_bicubic_below_the_floor(tmp_path, weights):
+def test_pipeline_routes_to_bicubic_below_the_floor(tmp_path, weights, monkeypatch):
     """sr_gain_route="bicubic": a job whose probe reads below the floor
     serves the bicubic ladder: on a one-step ladder, the pixels of the
     zero-tail (exact bicubic) net within 1 LSB (that net clips its step)."""
     from srs_tpu_torch.io.native import read_tiff
+    from torch_packaged import port_store_in
 
     image = _clean(700, 96)
     pipe = _small_pipeline(tmp_path, weights, sr_gain_route="bicubic", sr_gain_floor=50.0,
@@ -210,6 +211,7 @@ def test_pipeline_routes_to_bicubic_below_the_floor(tmp_path, weights):
     info = pipe.last_run_info
     assert info["provider"] == "bicubic" and info["model"] is None and info["models"] is None
     assert info["routing"]["errors"] == [] and info["sr_gain_probe"] < 50.0
+    port_store_in(monkeypatch, tmp_path / "none")  # the store holds edsr_m: untrained here
     plain = _small_pipeline(tmp_path, {}, auto_route=False, per_scale_selection=False,
                             target_resolution="192x192")
     res = plain.process(image, str(tmp_path / "p.tiff"))
