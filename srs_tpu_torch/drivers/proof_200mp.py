@@ -41,7 +41,7 @@ def tiff_header_tags(path: str) -> Dict[str, Any]:
     compression, rows per strip, strip offsets and strip byte counts.
 
     Minimal classic-TIFF (magic 42) reader, little or big endian, enough
-    tags to check the native writer's output (``native/tiffio.cpp``)."""
+    tags to check the native writer's output (``csrc/tiffio.cpp``)."""
     with open(path, "rb") as f:
         head = f.read(8)
         bo = "<" if head[:2] == b"II" else ">"

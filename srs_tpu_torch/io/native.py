@@ -1,11 +1,15 @@
 """The TIFF writers and the content hash, bound with ctypes (port of
 ``srs_tpu/io/native.py``).
 
-The library is compiled from the repository's ``native/tiffio.cpp`` with
-``g++ ... -lz`` into the port's build directory (``utils/build.py``); the
-port never writes into ``native/``. Strips deflate on a C++ thread pool
-while later bands are still being computed. :func:`write_tiff` writes a
-whole image in one call through the same streamed writer.
+The library is compiled from ``csrc/tiffio.cpp`` (the JAX package's
+``native/tiffio.cpp`` with the writer's counters added) with ``g++ ...
+-lz`` into the port's build directory (``utils/build.py``). Strips
+deflate on a C++ thread pool while later bands are still being computed. :func:`write_tiff` writes a
+whole image in one call through the same streamed writer. Closing a
+writer adds its counters (``TIFF_COUNTERS``: deflate CPU seconds, seconds
+blocked in the pool's barrier, in the final join and in the file write,
+strips, raw and stored bytes, pool size) to the current job's record
+as ``tiff.<name>`` (``utils/profiling.count``).
 :func:`load` is :func:`load_library`, and :func:`available` only asks
 whether the library builds and loads: no code of the port chooses a path
 by it.
@@ -27,12 +31,16 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
+from ..utils import profiling
 from ..utils.build import PACKAGE_DIR, build_shared
 
 __all__ = ["TiffStreamWriter", "read_tiff", "write_tiff", "content_hash", "load_library",
            "load", "available"]
 
-SOURCE = os.path.join(os.path.dirname(PACKAGE_DIR), "native", "tiffio.cpp")
+SOURCE = os.path.join(PACKAGE_DIR, "csrc", "tiffio.cpp")
+# srs_tiff_end_stats' counters, in its order.
+TIFF_COUNTERS = ("deflate_s", "barrier_s", "join_s", "file_s", "strips", "raw_bytes",
+                 "out_bytes", "threads")
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
@@ -56,6 +64,9 @@ def load_library() -> ctypes.CDLL:
             lib.srs_tiff_write_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p, i64]
             lib.srs_tiff_end.restype = i64
             lib.srs_tiff_end.argtypes = [ctypes.c_void_p]
+            lib.srs_tiff_end_stats.restype = i64
+            lib.srs_tiff_end_stats.argtypes = [ctypes.c_void_p,
+                                               ctypes.POINTER(ctypes.c_double), i64]
             lib.srs_hash64.restype = ctypes.c_uint64
             lib.srs_hash64.argtypes = [ctypes.c_void_p, i64]
             _lib = lib
@@ -137,8 +148,11 @@ class TiffStreamWriter:
     def close(self) -> int:
         if self._ctx is None:
             return 0
-        rc = self._lib.srs_tiff_end(self._ctx)
+        stats = (ctypes.c_double * len(TIFF_COUNTERS))()
+        rc = self._lib.srs_tiff_end_stats(self._ctx, stats, len(TIFF_COUNTERS))
         self._ctx = None
+        for name, value in zip(TIFF_COUNTERS, stats):
+            profiling.count(f"tiff.{name}", value)
         if rc < 0:
             raise IOError(f"srs_tiff_end failed ({rc})")
         return int(rc)

@@ -11,7 +11,10 @@ serves every provider:
   when the net is untrained and the polish trained, then IBP;
 - ``fusion``: the weighted sum of the FUSION.json members trained here
   (``_fusion_for`` 287-313; ``name+`` members as their self-ensemble),
-  falling back to ``quality`` where fewer than two are trained;
+  falling back to ``quality`` where fewer than two are trained; each
+  member's pass is a span ``super_resolution/<member>@x<scale>`` of the
+  current job's record (``utils/profiling.span``, with device seconds on
+  a card);
 - ``bicubic`` and ``shrink`` (``bicubic + alpha * (net - bicubic)``);
 - ``zssr``: the net ``zssr_prepare`` (reference 612-650) tuned on the
   input itself, at the scale it was tuned for, with no IBP and no
@@ -60,6 +63,7 @@ except ImportError:
 
 from ..config import ModelConfig
 from ..ops.resize import resize_bicubic, resize_bicubic_up
+from ..utils import profiling
 from ..utils.device import resolve_device
 from .conditioning import cond_vector
 from .fusion import load_fusion
@@ -427,13 +431,15 @@ class SuperResolutionModule:
             if fused is not None:
                 out = None
                 for name, w in fused:
-                    if name == "bicubic":
-                        y = resize_bicubic_up(tiles, scale)
-                    else:
-                        net = self._net("quality", scale, model=name.rstrip("+"))
-                        y = self._pass(net, tiles, ensemble or name.endswith("+"))
-                    y = y * w
-                    out = y if out is None else out.add_(y)
+                    # one span per member and step, its weighted sum included
+                    with profiling.span(f"super_resolution/{name}@x{scale}", tiles.device):
+                        if name == "bicubic":
+                            y = resize_bicubic_up(tiles, scale)
+                        else:
+                            net = self._net("quality", scale, model=name.rstrip("+"))
+                            y = self._pass(net, tiles, ensemble or name.endswith("+"))
+                        y = y * w
+                        out = y if out is None else out.add_(y)
                 return self._conditioned(out.clamp_(0, 255), category)
             provider = "quality"  # fewer than two trained members at this scale
         role = self.role(provider)

@@ -24,6 +24,10 @@ Each wrapper takes NHWC float tensors with any leading dimensions:
   ``srs_tpu/ops/pyramid.py`` (``_pyr_down_xla`` / ``_pyr_up_xla``). The
   CPU tests use it, and ``chip_smoke.py`` holds the kernels against it on
   the card.
+
+On either path a wrapper adds ``<name>.bytes`` (one read of the input
+and one write of the output, float32) to the current job's record
+(``utils/profiling.count``); its launches are ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ...utils import profiling
 from ...utils.build import PACKAGE_DIR, build_shared
 
 __all__ = [
@@ -71,9 +76,14 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
-def _count(name: str) -> None:
-    with _count_lock:
-        LAUNCHES[name] += 1
+def _record(name: str, x: torch.Tensor, out: torch.Tensor, launched: bool) -> torch.Tensor:
+    """Count a ``launched`` kernel in ``LAUNCHES``, and the call's bytes in
+    the current job's record; returns ``out``."""
+    if launched:
+        with _count_lock:
+            LAUNCHES[name] += 1
+    profiling.count(f"{name}.bytes", 4 * (x.numel() + out.numel()))
+    return out
 
 
 def _nvcc() -> str:
@@ -194,7 +204,7 @@ def _device_kind(x: torch.Tensor) -> str:
 def pyr_down(x: torch.Tensor) -> torch.Tensor:
     """pyrDown on (..., H, W, C): K1 on a CUDA tensor, plain on the CPU."""
     if _device_kind(x) == "cpu":
-        return pyr_down_plain(x)
+        return _record("pyr_down", x, pyr_down_plain(x), launched=False)
     lib = load_library()
     p = _planes(x)
     n, h, w, c = p.shape
@@ -204,15 +214,14 @@ def pyr_down(x: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(p.device).cuda_stream
         _check(lib.srs_pyr_down_f32(p.data_ptr(), out.data_ptr(), n, h, w, c,
                                     stream), "pyr_down")
-    _count("pyr_down")
-    return out.reshape(*x.shape[:-3], *out.shape[1:])
+    return _record("pyr_down", x, out.reshape(*x.shape[:-3], *out.shape[1:]), launched=True)
 
 
 def pyr_up(x: torch.Tensor, dst_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """pyrUp on (..., H, W, C) to ``dst_hw``: K2 on a CUDA tensor, plain on
     the CPU."""
     if _device_kind(x) == "cpu":
-        return pyr_up_plain(x, dst_hw)
+        return _record("pyr_up", x, pyr_up_plain(x, dst_hw), launched=False)
     lib = load_library()
     p = _planes(x)
     n, mh, mw, c = p.shape
@@ -224,5 +233,4 @@ def pyr_up(x: torch.Tensor, dst_hw: Optional[Tuple[int, int]] = None) -> torch.T
         stream = torch.cuda.current_stream(p.device).cuda_stream
         _check(lib.srs_pyr_up_f32(p.data_ptr(), out.data_ptr(), n, mh, mw, nh, nw,
                                   c, stream), "pyr_up")
-    _count("pyr_up")
-    return out.reshape(*x.shape[:-3], *out.shape[1:])
+    return _record("pyr_up", x, out.reshape(*x.shape[:-3], *out.shape[1:]), launched=True)

@@ -17,6 +17,10 @@ The results are the reference's; the execution shape is the port's own:
   neither each other nor any patch still to come before them, and the
   canvas ends as the reference's one-after-another loop leaves it
   (which :func:`repair_seams` called once per seam reproduces).
+
+Detection and repair are the spans ``blending/seam_detect`` and
+``blending/seam_repair`` of the current job's record
+(``utils/profiling.span``), whose seconds the ``stats`` dicts also get.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..tiling.geometry import TileLayout
+from ..utils import profiling
 from .blend import seamless_clone
 from .colorspace import rgb_to_gray
 from .filters import gaussian_blur
@@ -168,13 +173,14 @@ def detect_seams(
     and the source tiles is under ``threshold``, in global coordinates,
     merged within ``window_size`` px. ``stats``, when given, receives the
     flagged-window count and the seconds of detection and merge."""
-    t0 = time.time()
-    smap = windowed_ssim_map(result_tiles, source_tiles, window_size, stride).cpu().numpy()
-    x, y, score = _flagged_windows(smap, layout, threshold, stride)
-    t1 = time.time()
+    with profiling.span("blending/seam_detect") as detect:
+        smap = windowed_ssim_map(result_tiles, source_tiles, window_size, stride).cpu().numpy()
+        x, y, score = _flagged_windows(smap, layout, threshold, stride)
+    t1 = time.perf_counter()
     seams = _merge_windows(x, y, score, window_size)
     if stats is not None:
-        stats.update(flagged_windows=int(len(x)), detect_s=t1 - t0, merge_s=time.time() - t1)
+        stats.update(flagged_windows=int(len(x)), detect_s=detect.seconds,
+                     merge_s=time.perf_counter() - t1)
     return seams
 
 
@@ -249,14 +255,23 @@ def repair_seams(
     seams are skipped. Waves of non-overlapping patches give the result
     of repairing the seams one after another. ``stats`` receives the wave
     count and the seconds taken."""
-    t_start = time.time()
+    with profiling.span("blending/seam_repair") as repair:
+        canvas, waves = _repair_in_waves(canvas, seams, source_tiles, layout, patch)
+        if stats is not None and canvas.device.type == "cuda":
+            torch.cuda.synchronize(canvas.device)
+    if stats is not None:
+        stats.update(waves=waves, repair_s=repair.seconds)
+    return canvas
+
+
+def _repair_in_waves(canvas, seams, source_tiles, layout, patch: int):
+    """:func:`repair_seams`' work: the repaired float copy of ``canvas``
+    and the number of waves."""
     h, w = int(canvas.shape[0]), int(canvas.shape[1])
     canvas = canvas.float().clone()
     plan = _plan(seams, source_tiles, layout, h, w, patch)
     if len(plan) == 0:
-        if stats is not None:
-            stats.update(waves=0, repair_s=time.time() - t_start)
-        return canvas
+        return canvas, 0
     dev = canvas.device
     waves = _waves(plan[:, 0], plan[:, 1], h, w, patch)
     src = source_tiles.float() if source_tiles is not None else None
@@ -275,11 +290,7 @@ def repair_seams(
             src_p = src[c[:, 2][:, None, None], si, sj]
             out[clone] = _poisson_patch(dst[clone], src_p)
         canvas[ri, ci] = out
-    if stats is not None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        stats.update(waves=int(waves.max()) + 1, repair_s=time.time() - t_start)
-    return canvas
+    return canvas, int(waves.max()) + 1
 
 
 def _best_tile_for(seam: Seam, layout: TileLayout) -> int:

@@ -46,6 +46,16 @@ as ``quality``: the quality nets, routed) and ``veimagex`` (served as
    get a full-resolution no-reference panel and the report is written
    beside the output as ``<out>_qa_report.json``.
 
+Each ``process()`` call keeps one record (``utils/profiling.JobRecord``),
+returned as ``PipelineResult.job_id`` and ``spans``: the five stages (the
+seconds of ``stage_times``, each under a ``stage:<name>`` profiler range),
+their parts (``quality_assessment/finalize``, ``/proxy``,
+``/full_reference``, ``/no_reference``; ``save/fetch``, ``/write``,
+``/crops``, ``/close``, ``/fullres_qa``, and ``save/finalize`` with QA
+off), ``device_wait`` (a batch job's wait for the device stages), and what
+the layers add where their work happens: the fusion members' spans, the
+seam passes', and the TIFF writer's and the pyramid kernels' counters.
+
 ``cancel()`` stops a job at the next stage boundary (before SR, blending,
 QA and save). ``process_batch`` runs jobs in the scheduler's priority
 order; with ``max_concurrent > 1`` on a thread pool whose device stages
@@ -119,6 +129,7 @@ from .tiling.content import ContentAnalyzer
 from .tiling.content_layout import content_aware_weight_profiles, content_aware_weights
 from .tiling.geometry import compute_layout
 from .tiling.tiling import TilingModule
+from .utils import profiling
 from .utils.device import resolve_device
 
 logger = logging.getLogger("srs_tpu_torch.pipeline")
@@ -265,6 +276,10 @@ class PipelineResult:
     quality_report: Optional[Dict[str, Any]]
     error_message: Optional[str]
     stage_times: Dict[str, float] = field(default_factory=dict)
+    # The job's record (utils/profiling.JobRecord): its id, and seconds by
+    # span path with the counters as "count/<name>".
+    job_id: int = 0
+    spans: Dict[str, float] = field(default_factory=dict)
 
 
 def _canonical(device: torch.device) -> torch.device:
@@ -275,16 +290,15 @@ def _canonical(device: torch.device) -> torch.device:
     return device
 
 
-def _timed(it, split: Dict[str, float], key: str):
-    """Yield from ``it``, adding the seconds spent in ``next`` to ``split[key]``."""
-    it = iter(it)
+def _fetched(bands):
+    """Yield from ``bands``, each ``next`` a ``save/fetch`` span."""
+    it = iter(bands)
     while True:
-        ts = time.time()
-        item = next(it, None)
-        split[key] += time.time() - ts
-        if item is None:
+        with profiling.span("save/fetch"):
+            band = next(it, None)
+        if band is None:
             return
-        yield item
+        yield band
 
 
 class SuperResolutionPipeline:
@@ -1026,7 +1040,7 @@ class SuperResolutionPipeline:
         coordinates, a brand with ``"reference_color"``) add the
         commercial metrics to the QA report; with QA off they are
         ignored, as in the reference."""
-        start = time.time()
+        start = time.perf_counter()
         stage_times: Dict[str, float] = {}
         category = (prompt if prompt in PromptTemplateManager.TEMPLATES
                     else self.config.prompt_category)
@@ -1034,20 +1048,23 @@ class SuperResolutionPipeline:
             # Inside a batch the workers share the event: process_batch
             # clears it once, so a cancel() during the batch stops every job.
             self._cancel_event.clear()
-        try:
-            # inference_mode is per thread: each batch worker enters its own.
-            with torch.inference_mode(), contextlib.ExitStack() as device_stages:
-                return self._process(input_path, output_path, start, stage_times, category,
-                                     roi_regions, device_stages)
-        except Exception as e:  # noqa: BLE001 - parity: never raise
-            logger.exception("pipeline failed")
-            return PipelineResult(
-                success=False, output_path=None,
-                processing_time=time.time() - start, total_blocks=0,
-                successful_blocks=0, failed_blocks=0, quality_score=None,
-                quality_report=None, error_message=f"{type(e).__name__}: {e}",
-                stage_times=stage_times,
-            )
+        with profiling.job() as record:
+            try:
+                # inference_mode is per thread: each batch worker enters its own.
+                with torch.inference_mode(), contextlib.ExitStack() as device_stages:
+                    result = self._process(input_path, output_path, start, stage_times,
+                                           category, roi_regions, device_stages)
+            except Exception as e:  # noqa: BLE001 - parity: never raise
+                logger.exception("pipeline failed")
+                result = PipelineResult(
+                    success=False, output_path=None,
+                    processing_time=time.perf_counter() - start, total_blocks=0,
+                    successful_blocks=0, failed_blocks=0, quality_score=None,
+                    quality_report=None, error_message=f"{type(e).__name__}: {e}",
+                    stage_times=stage_times,
+                )
+            result.job_id, result.spans = record.job_id, record.spans()
+        return result
 
     def process_batch(self, jobs: List[Dict[str, Any]],
                       max_concurrent: int = 2) -> List[PipelineResult]:
@@ -1097,15 +1114,18 @@ class SuperResolutionPipeline:
 
     @contextlib.contextmanager
     def _stage(self, name: str, stage_times: Dict[str, float]):
-        """Time one stage up to the end of its device work, under a
-        ``stage:<name>`` profiler range."""
-        t0 = time.time()
-        with torch.profiler.record_function(f"stage:{name}"):
+        """Time one stage up to the end of its device work as the span
+        ``name`` (a ``stage:<name>`` profiler range) of the job's record,
+        then resolve the stage's device spans."""
+        with profiling.span(name) as timed:
             yield
             self._sync()
-        stage_times[name] = time.time() - t0
+        stage_times[name] = timed.seconds
+        record = profiling.current()
+        if record is not None:
+            record.resolve_device()
 
-    def _write_tiff(self, path: str, bands, th: int, tw: int, split: Dict[str, float],
+    def _write_tiff(self, path: str, bands, th: int, tw: int,
                     crops: Optional[List[np.ndarray]]) -> None:
         """Stream the bands into the native TIFF writer; ``crops``, when
         given, collects the QA panel's crops on the way."""
@@ -1116,17 +1136,16 @@ class SuperResolutionPipeline:
                                   compress=(os.cpu_count() or 1) > 1)
         try:
             row0 = 0
-            for band in _timed(bands, split, "fetch"):
-                ts = time.time()
-                writer.write(band)
-                split["write"] += time.time() - ts
+            for band in _fetched(bands):
+                with profiling.span("save/write"):
+                    writer.write(band)
                 if crops is not None:
-                    self._sample_fullres_crops(band, row0, th, crops)
+                    with profiling.span("save/crops"):
+                        self._sample_fullres_crops(band, row0, th, crops)
                 row0 += band.shape[0]
         finally:
-            ts = time.time()
-            writer.close()  # joins the deflate threads and writes the file
-            split["close"] = time.time() - ts
+            with profiling.span("save/close"):
+                writer.close()  # joins the deflate threads and writes the file
 
     def _process(self, input_path, output_path, start, stage_times, category: Optional[str],
                  roi_regions: Optional[List[Dict[str, Any]]],
@@ -1155,7 +1174,8 @@ class SuperResolutionPipeline:
         self._check_cancel("super_resolution")
         if self._stage_sem is not None:
             sem = self._stage_sem
-            sem.acquire()
+            with profiling.span("device_wait"):  # the batch's queue for the card
+                sem.acquire()
             device_stages.callback(sem.release)
         asked = routed_provider or cfg.provider
         with self._stage("super_resolution", stage_times):
@@ -1194,8 +1214,6 @@ class SuperResolutionPipeline:
                     crop_w=min(out_layout.padded_w, layout.image_w * net_scale))
         quant = "uint16" if self.config.bit_depth == 16 else True
 
-        split: Dict[str, float] = {"fetch": 0.0, "write": 0.0}
-
         def banded(oh: int, ow: int, nbands: int, to_uint8, **kw):
             """Output bands: each shard's own (reference pipeline.py:1227-1272)
             or the single-device finalize's."""
@@ -1205,11 +1223,10 @@ class SuperResolutionPipeline:
             return blend_finalize_banded(lap0, coarse, oh, ow, bands=nbands, to_uint8=to_uint8,
                                          **crop, **kw)
 
-        def save_bands():
-            t0 = time.time()
-            bands = banded(th, tw, 8, quant, as_iterator=True)
-            self._sync()
-            split["finalize"] = time.time() - t0
+        def save_bands(stage: str):
+            with profiling.span(f"{stage}/finalize"):
+                bands = banded(th, tw, 8, quant, as_iterator=True)
+                self._sync()
             return bands
 
         self._check_cancel("quality_assessment")
@@ -1217,16 +1234,20 @@ class SuperResolutionPipeline:
         bands = None
         if self.quality_module is not None:
             with self._stage("quality_assessment", stage_times):
-                bands = save_bands()  # first, as the reference dispatches them
+                # first, as the reference dispatches them
+                bands = save_bands("quality_assessment")
                 # The input-size proxy: on the device, or from the shards
                 # through the host as the reference's sharded branch does.
-                if sharded:
-                    small = torch.from_numpy(banded(h, w, 2, False)).to(self.device)
-                else:
-                    small = banded(h, w, 2, False, as_device=True)
-                small = small.clamp_(0, 255)
-                fr = self.quality_module.evaluate_full_reference(image_dev, small)
-                nr = self.quality_module.evaluate_no_reference(small)
+                with profiling.span("quality_assessment/proxy"):
+                    if sharded:
+                        small = torch.from_numpy(banded(h, w, 2, False)).to(self.device)
+                    else:
+                        small = banded(h, w, 2, False, as_device=True)
+                    small = small.clamp_(0, 255)
+                with profiling.span("quality_assessment/full_reference"):
+                    fr = self.quality_module.evaluate_full_reference(image_dev, small)
+                with profiling.span("quality_assessment/no_reference"):
+                    nr = self.quality_module.evaluate_no_reference(small)
                 quality_report = {**fr, **nr}
                 if roi_regions:
                     # input-size proxy, so the boxes apply as they are; the
@@ -1240,37 +1261,40 @@ class SuperResolutionPipeline:
         self._check_cancel("save")
         with self._stage("save", stage_times):
             if bands is None:
-                bands = save_bands()
+                bands = save_bands("save")
             crops: List[np.ndarray] = []
             if output_path.lower().endswith((".tiff", ".tif")):
-                self._write_tiff(output_path, bands, th, tw, split,
+                self._write_tiff(output_path, bands, th, tw,
                                  crops if quality_report is not None else None)
-                logger.info("save breakdown: fetch %.2fs, write %.2fs", split["fetch"],
-                            split["write"])
             else:
                 # reference pipeline.py:1340-1354: one array through save_image
-                out = np.concatenate(list(_timed(bands, split, "fetch")), axis=0)
+                out = np.concatenate(list(_fetched(bands)), axis=0)
                 if quality_report is not None:
-                    self._sample_fullres_crops(out, 0, th, crops)
+                    with profiling.span("save/crops"):
+                        self._sample_fullres_crops(out, 0, th, crops)
                 if out.dtype == np.uint16:  # PNG and JPEG are 8-bit here
                     out = (out // 257).astype(np.uint8)
-                ts = time.time()
-                save_image(output_path, out)
-                split["write"] = time.time() - ts
+                with profiling.span("save/write"):
+                    save_image(output_path, out)
             if quality_report is not None:
-                ts = time.time()
-                if crops:
-                    quality_report.update(self._fullres_noref(crops))
-                report_path = output_path.rsplit(".", 1)[0] + "_qa_report.json"
-                with open(report_path, "w", encoding="utf-8") as f:
-                    json.dump(quality_report, f, indent=2, ensure_ascii=False)
-                split["fullres_qa"] = time.time() - ts
-        info["save_breakdown"] = split
+                with profiling.span("save/fullres_qa"):
+                    if crops:
+                        quality_report.update(self._fullres_noref(crops))
+                    report_path = output_path.rsplit(".", 1)[0] + "_qa_report.json"
+                    with open(report_path, "w", encoding="utf-8") as f:
+                        json.dump(quality_report, f, indent=2, ensure_ascii=False)
+        finalized = "quality_assessment" if quality_report is not None else "save"
+        parts = (("fetch", "save/fetch"), ("write", "save/write"), ("close", "save/close"),
+                 ("finalize", f"{finalized}/finalize"), ("fullres_qa", "save/fullres_qa"))
+        record = profiling.current()
+        spans = record.times if record is not None else {}
+        info["save_breakdown"] = {key: spans[path] for key, path in parts if path in spans}
+        logger.info("save breakdown: %s", info["save_breakdown"])
 
         return PipelineResult(
             success=True,
             output_path=output_path,
-            processing_time=time.time() - start,
+            processing_time=time.perf_counter() - start,
             total_blocks=layout.num_tiles,
             successful_blocks=layout.num_tiles,
             failed_blocks=0,
