@@ -7,13 +7,23 @@ Run from the root of a checkout on a machine with one CUDA card. Phases,
 in order, each printing one JSON line with its seconds:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the pyramid kernels (``nvcc``) and the TIFF writer (``g++``),
-   built together from the sources in the checkout; the kernels'
-   registers and spills as ``ptxas -v`` prints them;
+2. build: the pyramid kernels and the conv epilogue (``nvcc``) and the
+   TIFF writer (``g++``), built together from the sources in the
+   checkout; the kernels' registers and spills as ``ptxas -v`` prints
+   them;
 3. kernels: K1 (pyrDown) and K2 (pyrUp) held against their plain PyTorch
    versions on the card, at the main path's shapes, at odd and tiny
    sizes, and at the edges of their row-streaming blocks, with their
-   times beside the bound and a PyTorch library call;
+   times beside the bound and a PyTorch library call; the conv epilogue
+   (``ops/cuda/epilogue.py``) bit-equal to its plain version in each of
+   its three forms at the fusion cell's largest map ([6,128,1536^2],
+   channels_last bf16), at odd channel counts, ragged ends and tiny
+   maps, in the NCHW layout and in float32 and float16, timed beside its
+   bound and the plain ops; and the nets' two
+   routes bit-equal on the store's trained nets: each fusion member
+   once on a [6,512^2] tile batch and ``edsr_xl+`` (8 dihedral passes)
+   on both x3 steps' batches, the plain route being the parent's own
+   (the bias inside the conv call, then the separate ops);
 4. reference: the whole pipeline on small inputs with seeded ``edsr_m``
    (the store hidden), on the card and on the CPU (plain versions): with
    routing, selection and QA off, TIFFs within 1 LSB; with them on (the
@@ -177,7 +187,8 @@ in order, each printing one JSON line with its seconds:
    --checkpoint-dir`` that directory in a subprocess (a 2048x2048 PNG from
    ``ark_gen-ddim``, 50 DDIM steps); the same call in this process with
    the refinement, three times: the seconds of the sample, the SR ladder
-   and the refinement apart, its tile count, peak memory, the same seed
+   and the refinement apart, every sampling conv through the epilogue
+   kernel, its tile count, peak memory, the same seed
    within 1 LSB, another class moving it well above that reproduction
    noise; then ``ARKImageGenerator`` with no checkpoint directory and
    nothing handed in, twice at 1K: the store's trained generator must
@@ -578,6 +589,163 @@ def check_kernels(torch, K) -> dict:
     return out
 
 
+# The conv epilogue's cases at its edges, channels_last bf16: odd channel
+# counts (3, 5, 12, 27 take one bias load per value; 8 and up by 8 one
+# 16-byte load), runs whose length is no multiple of 8, maps of under one
+# vector and the attention gate's [N, C, 1, 1]. [N, C, H, W] shapes.
+EPILOGUE_EDGE_CASES = [(1, 3, 5, 7), (2, 27, 9, 11), (1, 12, 3, 3), (1, 5, 1, 1), (1, 3, 1, 1),
+                       (2, 8, 1, 1), (6, 64, 17, 13), (1, 96, 7, 9), (2, 128, 33, 31),
+                       (1, 512, 5, 5), (6, 32, 61, 67)]
+# ... and in the other layout and types the kernel takes: (shape, layout,
+# type). NCHW maps whose H * W is no multiple of a vector (a vector then
+# spans two channels), the generator's widths, float32 (4 values a vector)
+# and float16.
+EPILOGUE_OTHER_CASES = [((2, 64, 17, 13), "nchw", "bfloat16"), ((1, 3, 5, 7), "nchw", "bfloat16"),
+                        ((2, 128, 1, 1), "nchw", "bfloat16"), ((2, 192, 32, 32), "nchw", "bfloat16"),
+                        ((1, 3, 2, 3), "nchw", "bfloat16"), ((2, 32, 9, 11), "nchw", "float32"),
+                        ((2, 27, 9, 11), "nhwc", "float32"), ((1, 64, 33, 31), "nhwc", "float32"),
+                        ((1, 96, 7, 9), "nhwc", "float16"), ((1, 5, 3, 3), "nchw", "float16")]
+EPILOGUE_FORMS = {"bias": {}, "relu": {"relu": True},
+                  "residual": {"res_scale": 0.1}, "residual_scale_1": {"res_scale": 1.0}}
+# The fusion cell's largest map: edsr_xl on the second x3 step's batch.
+EPILOGUE_SHAPE = (6, 128, 1536, 1536)
+
+
+def epilogue_work(shape, form: str) -> tuple:
+    """Bytes (one read and one write of the map, one read of the residual
+    and of the bias) and FLOP (the add; the ReLU's max; the scale and the
+    residual add) of one epilogue launch in ``form``."""
+    n = int(np.prod(shape))
+    residual = form.startswith("residual")
+    return 2 * n * (3 if residual else 2) + 2 * shape[1], n * (3 if residual else
+                                                               2 if form == "relu" else 1)
+
+
+def _nhwc_bf16(torch, shape, gen, lo=-4.0, hi=4.0, dtype=None):
+    n, c, h, w = shape
+    t = torch.rand((n, h, w, c), generator=gen, device="cuda") * (hi - lo) + lo
+    return t.to(dtype or torch.bfloat16).permute(0, 3, 1, 2)
+
+
+def _route_outputs(torch, net, tiles, ensemble: bool) -> tuple:
+    """(fused route, plain route) outputs of ``net`` on ``tiles``: serving
+    under inference mode, then the same with autograd on, which takes the
+    plain route (the bias inside the conv call, then the separate ops)."""
+    from srs_tpu_torch.models.sr_module import _dihedral_ensemble
+
+    def run():
+        return _dihedral_ensemble(net, tiles) if ensemble else net(tiles)
+
+    with torch.inference_mode():
+        fused = run()
+    with torch.enable_grad():
+        plain = run()
+    return fused, plain
+
+
+def check_epilogue(torch, E) -> dict:
+    """The conv epilogue held bit-equal against its plain version, timed at
+    the fusion cell's largest map, and the nets' two routes held bit-equal
+    on the store's trained nets."""
+    from srs_tpu_torch.models.registry import PACKAGED_CHECKPOINT_DIR, build_model
+    from srs_tpu_torch.models.sr_module import _dihedral_ensemble
+    from srs_tpu_torch.models.store import load_state
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mismatches = []
+    max_err = [0.0]
+
+    def hold(shape, form, kw, y, b, x, label):
+        res = x if form.startswith("residual") else None
+        got = E.conv_epilogue(y.clone(), b, residual=res, **kw)  # clone keeps the layout
+        want = E.conv_epilogue_plain(y.clone(), b, residual=res, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        max_err[0] = max(max_err[0], err)
+        if not torch.equal(got, want):
+            mismatches.append([label, list(shape), form, int((got != want).sum()), err])
+
+    for shape in EPILOGUE_EDGE_CASES:
+        y, x = _nhwc_bf16(torch, shape, gen), _nhwc_bf16(torch, shape, gen)
+        b = (torch.rand(shape[1], generator=gen, device="cuda") - 0.5).to(torch.bfloat16)
+        for form, kw in EPILOGUE_FORMS.items():
+            hold(shape, form, kw, y, b, x, "edge")
+        # a bias that is not 16-byte aligned takes the one-load-per-value path
+        b_odd = torch.empty(shape[1] + 1, dtype=torch.bfloat16, device="cuda")[1:]
+        b_odd.copy_(b)
+        hold(shape, "relu", {"relu": True}, y, b_odd, x, "unaligned_bias")
+    for shape, layout, dtype in EPILOGUE_OTHER_CASES:
+        dt = getattr(torch, dtype)
+        y, x = (_nhwc_bf16(torch, shape, gen, dtype=dt) for _ in range(2))
+        if layout == "nchw":
+            y, x = y.contiguous(), x.contiguous()
+        b = (torch.rand(shape[1], generator=gen, device="cuda") - 0.5).to(dt)
+        for form, kw in EPILOGUE_FORMS.items():
+            hold(shape, form, kw, y, b, x, f"{layout}_{dtype}")
+    launches0 = E.LAUNCHES["conv_epilogue"]
+
+    shape = EPILOGUE_SHAPE
+    y, x = _nhwc_bf16(torch, shape, gen), _nhwc_bf16(torch, shape, gen)
+    b = (torch.rand(shape[1], generator=gen, device="cuda") - 0.5).to(torch.bfloat16)
+    timed = {}
+    for form, kw in EPILOGUE_FORMS.items():
+        hold(shape, form, kw, y, b, x, "largest")
+        res = x if form.startswith("residual") else None
+        work = y.clone()
+        nbytes, flops = epilogue_work(shape, form)
+        ms = cuda_ms(lambda: E.conv_epilogue(work, b, residual=res, **kw), 50)
+        plain_ms = cuda_ms(lambda: E.conv_epilogue_plain(work, b, residual=res, **kw), 5)
+        bound_ms, bound_by = bound(nbytes, flops)
+        timed[form] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "pct_of_bound": 100.0 * bound_ms / ms, "bytes": nbytes}
+        del work
+    del y, x
+    torch.cuda.empty_cache()
+    if mismatches:
+        fail(f"the conv epilogue differs from its plain version: {mismatches[:8]}")
+
+    # The nets' two routes on the store's trained nets, on photo-like tiles.
+    image = synthetic_image(1024, 1536, seed=11)
+    tiles = torch.from_numpy(image).cuda().reshape(2, 512, 3, 512, 3).permute(0, 2, 1, 3, 4)
+    tiles = tiles.reshape(6, 512, 512, 3).contiguous()
+    nets_out, max_diff = {}, {}
+    E.reset_launches()
+    for name in ("edsr_xl", "edsr_l", "rcan", "edsr_m", "espcn"):
+        sd = load_state(os.path.join(PACKAGED_CHECKPOINT_DIR, f"{name}_x3.srsw"))
+        net, _ = build_model(name, 3, sd, device="cuda")
+        fused, plain = _route_outputs(torch, net, tiles, ensemble=False)
+        nets_out[f"{name}@[6,512^2]"] = bool(torch.equal(fused, plain))
+        max_diff[f"{name}@[6,512^2]"] = float((fused - plain).abs().max())
+        if name == "edsr_xl":
+            xl = net
+            step2 = fused.clamp(0, 255)
+        del net, fused, plain
+    per_pass = E.LAUNCHES["conv_epilogue"]
+    for label, batch in (("[6,512^2]", tiles), ("[6,1536^2]", step2)):
+        fused, plain = _route_outputs(torch, xl, batch, ensemble=True)
+        key = f"edsr_xl+@{label}"
+        nets_out[key] = bool(torch.equal(fused, plain))
+        max_diff[key] = float((fused - plain).abs().max())
+        if not nets_out[key]:  # how far two plain runs of cuDNN lie apart
+            with torch.enable_grad():
+                again = _dihedral_ensemble(xl, batch)
+            max_diff[key + " plain_vs_plain"] = float((again - plain).abs().max())
+            del again
+        del fused, plain
+    del xl, step2, tiles
+    torch.cuda.empty_cache()
+    apart = [k for k, same in nets_out.items() if not same
+             and max_diff[k] > max_diff.get(k + " plain_vs_plain", 0.0)]
+    if apart:
+        fail(f"the fused and plain routes of the nets differ: {[(k, max_diff[k]) for k in apart]}"
+             f" {max_diff}")
+    return {"edge_cases": len(EPILOGUE_EDGE_CASES) * (len(EPILOGUE_FORMS) + 1)
+            + len(EPILOGUE_OTHER_CASES) * len(EPILOGUE_FORMS),
+            "edge_launches": launches0, "max_abs_err": max_err[0], "shape": list(EPILOGUE_SHAPE), "forms": timed,
+            "nets_bit_equal": nets_out, "nets_max_abs_diff": max_diff,
+            "launches_one_pass_of_each_member": per_pass}
+
+
 def time_kernel_shapes(torch, K, held_by_path: dict) -> dict:
     """K1 and K2 at every distinct (input, output) shape of the warm-up
     runs, on random data of that shape: its launches per call on each
@@ -845,6 +1013,7 @@ def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, weights=None,
     default to :func:`xl_weights`; ``before_run(pipe)`` runs before each of
     the two runs; the timed run must serve ``ladder``. Returns (numbers,
     pipeline, result, path of the output)."""
+    import srs_tpu_torch.ops.cuda.epilogue as E
     from srs_tpu_torch.io.native import read_tiff
     from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
 
@@ -869,10 +1038,14 @@ def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, weights=None,
     torch.cuda.reset_peak_memory_stats()
     mem_before = torch.cuda.memory_allocated()
     K.reset_launches()
+    E.reset_launches()
     t0 = time.time()
     res = pipe.process(image, path, prompt=prompt)
     elapsed = time.time() - t0
     launches = dict(K.LAUNCHES)
+    epilogue = {"launches": E.LAUNCHES["conv_epilogue"],
+                **{k: res.spans.get(f"count/conv_epilogue.{k}", 0)
+                   for k in ("fused", "plain", "plain_autograd")}}
     torch.cuda.synchronize()
     mem_after = torch.cuda.memory_allocated()
     if not res.success:
@@ -880,6 +1053,11 @@ def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, weights=None,
     for kname, n in launches.items():
         if n <= 0:
             fail(f"{name} never launched kernel {kname}")
+    # every served conv takes the kernel; only a conv under autograd (zssr's
+    # tuning inside the job) takes the plain ops
+    if (not epilogue["fused"] or epilogue["fused"] != epilogue["launches"]
+            or epilogue["plain"] != epilogue["plain_autograd"]):
+        fail(f"{name}: convolutions served without the epilogue kernel: {epilogue}")
     if pipe.last_run_info["ladder"] != list(ladder):
         fail(f"{name}: ladder {pipe.last_run_info['ladder']} != {list(ladder)}")
     size = os.path.getsize(path)
@@ -904,6 +1082,7 @@ def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, weights=None,
         "ladder": pipe.last_run_info["ladder"],
         "num_tiles": pipe.last_run_info["num_tiles"],
         "launches": launches,
+        "conv_epilogue": epilogue,
         "held_against_plain": held,
         "input_means": [float(v) for v in mean_in],
         "output_means": [float(v) for v in mean_out],
@@ -2798,16 +2977,18 @@ def generate_phase(torch, tmp: str) -> dict:
     the checkpoint and ``ark_meta.json`` reload equal); ``python3 -m
     srs_tpu_torch generate ... --size 2K --checkpoint-dir`` that directory
     in a subprocess (a 2048x2048 PNG from ``ark_gen-ddim`` at 50 steps);
-    the same call in this process with the refinement, three times: the
-    seconds of the sample, the SR ladder and the refinement, the tile
+    the same call in this process with the refinement, three times, every
+    sampling conv through the epilogue kernel: the seconds of the sample, the SR ladder and the refinement, the tile
     count and peak memory, the same seed within 1 LSB, another class
     moving the image well above that (``GEN_CLASS_MOVES``)."""
+    import srs_tpu_torch.ops.cuda.epilogue as E
     from srs_tpu_torch.io.image import image_size, load_image
     from srs_tpu_torch.models.generate import ARKImageConfig, ARKImageGenerator
     from srs_tpu_torch.models.generative import (ark_meta, clear_ark_cache, make_class_corpus,
                                                  train_ark)
     from srs_tpu_torch.models.registry import load_checkpoint
     from srs_tpu_torch.tiling.geometry import compute_layout
+    from srs_tpu_torch.utils import profiling
 
     ckpt = os.path.join(tmp, "ark")
     t0 = time.time()
@@ -2867,11 +3048,17 @@ def generate_phase(torch, tmp: str) -> dict:
 
     # in this process, with the refinement
     gen = ARKImageGenerator(checkpoint_dir=ckpt, device="cuda")
+    routes = []
 
     def timed(prompt, seed=None):
         t0 = time.time()
-        r = gen.generate(prompt, ARKImageConfig(size="2K", seed=seed, extra={"refine": True}))
+        E.reset_launches()
+        with profiling.job() as rec:  # the sampler's convs; the refinement keeps its own record
+            r = gen.generate(prompt, ARKImageConfig(size="2K", seed=seed, extra={"refine": True}))
         r.metadata["wall_s"] = time.time() - t0
+        routes.append({"launches": E.LAUNCHES["conv_epilogue"],
+                       **{k: rec.counters.get(f"conv_epilogue.{k}", 0)
+                          for k in ("fused", "plain", "plain_autograd")}})
         return r
 
     torch.cuda.reset_peak_memory_stats()
@@ -2879,6 +3066,9 @@ def generate_phase(torch, tmp: str) -> dict:
     runs.append(timed(GEN_OTHER_PROMPT, seed=runs[0].seed))
     peak = torch.cuda.max_memory_allocated() / 1e9
     r1, r2, r3 = runs
+    # the sampler runs without autograd: every conv takes the epilogue kernel
+    if any(not r["fused"] or r["plain"] or r["launches"] < r["fused"] for r in routes):
+        fail(f"generate: sampling convolutions without the epilogue kernel: {routes}")
     for r in runs:
         if r.metadata.get("model") != "ark_gen-ddim" or r.image.shape != (2048, 2048, 3) \
                 or r.metadata["steps"] != 50 or not r.metadata["refined"] \
@@ -2916,6 +3106,7 @@ def generate_phase(torch, tmp: str) -> dict:
     return {
         "train": train, "cli": cli,
         "in_process": {"metadata": [r.metadata for r in runs], "refine_tiles": tiles,
+                       "conv_epilogue": routes,
                        "peak_mem_gb": peak, "same_seed_abs": same,
                        "other_class_abs": other},
         "store_generator": {"metadata": store_runs, "ark_meta": ark_meta()},
@@ -4298,6 +4489,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
+        import srs_tpu_torch.ops.cuda.epilogue as E
         import srs_tpu_torch.ops.cuda.pyramid as K
         from srs_tpu_torch.io import native
     except ImportError as e:
@@ -4313,17 +4505,20 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(K.load_library), pool.submit(native.load_library)]
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(K.load_library), pool.submit(E.load_library),
+                pool.submit(native.load_library)]
         for job in jobs:
             job.result()
-    emit("build", t0, ptxas=ptxas_summary(K.load_library()._name + ".log"))
+    emit("build", t0, ptxas=ptxas_summary(K.load_library()._name + ".log")
+         + ptxas_summary(E.load_library()._name + ".log"))
 
     tmp = tempfile.mkdtemp(prefix="srs_chip_smoke_")
     try:
         t0 = time.time()
         knums = check_kernels(torch, K)
-        emit("kernels", t0, tolerance=KERNEL_ATOL, **knums)
+        enums = check_epilogue(torch, E)
+        emit("kernels", t0, tolerance=KERNEL_ATOL, **knums, conv_epilogue=enums)
 
         t0 = time.time()
         with store_masked(tmp):  # seeded edsr_m; selection finds no ledger
@@ -4491,6 +4686,19 @@ def main() -> int:
             "shapes": [{k: r[k] for k in ("in", "out", "launches", "ms", "bound_ms",
                                           "pct_of_bound")} for r in shapes[name]],
         })
+    kernels.append({
+        "name": "conv_epilogue", "route": "cuda", "source": "srs_tpu_torch/csrc/epilogue.cu",
+        "replaces": "none: XLA fuses the bias, ReLU and residual into the TPU's convolution",
+        "launches": packaged["conv_epilogue"]["launches"],
+        "launches_by_path": {"packaged": packaged["conv_epilogue"]["launches"],
+                             "bench_path": bench["conv_epilogue"]["launches"],
+                             "main_path": main["conv_epilogue"]["launches"],
+                             **{f"provider_{k}": v["conv_epilogue"]["launches"]
+                                for k, v in prov.items()}},
+        "max_abs_err": enums["max_abs_err"], "shape": enums["shape"],
+        "forms": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "pct_of_bound")}
+                  for k, v in enums["forms"].items()},
+    })
     emit("done", t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -22,7 +22,10 @@ Two layout rules hold against the flax reference (handled by
   that feeds a shuffle are permuted when converting.
 
 Inside the net the activations are NCHW views of NHWC memory (torch's
-channels_last), which cuDNN runs directly.
+channels_last), which cuDNN runs directly. Each conv ends in its epilogue
+(``ops/cuda/epilogue.py``): the bias, and the ReLU or the scaled residual
+that follows it in the net, as one kernel where that applies, else as the
+plain ops; both routes give the same bits.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda import epilogue
 from ..ops.resize import resize_area_int, resize_bicubic, resize_bicubic_up
 
 __all__ = ["ESPCN", "EDSR", "RCAN", "Conv2d", "Linear", "back_project", "depth_to_space",
@@ -41,10 +45,23 @@ __all__ = ["ESPCN", "EDSR", "RCAN", "Conv2d", "Linear", "back_project", "depth_t
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that runs in the type of its input, casting its
-    parameters to it."""
+    parameters to it, and ends in its epilogue: the bias, then a ReLU
+    (``relu``) or ``residual + res_scale * y`` (``residual``).
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+    On a card with autograd off (serving) the epilogue is one kernel
+    (``epilogue.conv_epilogue``), which raises on what it does not take;
+    on the CPU and under autograd (training, zssr's tuning) the plain ops,
+    as PyTorch runs them (``epilogue.conv_epilogue_plain``). Both routes
+    give the same bits."""
+
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: Optional[torch.Tensor] = None, res_scale: float = 1.0) -> torch.Tensor:
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if x.is_cuda and not torch.is_grad_enabled():
+            return epilogue.conv_epilogue(self._conv_forward(x, w, None), b, relu, residual,
+                                          res_scale)
+        return epilogue.conv_epilogue_plain(self._conv_forward(x, w, b), None, relu, residual,
+                                            res_scale)
 
 
 class Linear(nn.Linear):
@@ -128,7 +145,7 @@ class ESPCN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         base, h = _residual(x, self.scale, self.dtype)
-        h = F.relu(self.conv_mid(F.relu(self.conv_in(h), inplace=True)), inplace=True)
+        h = self.conv_mid(self.conv_in(h, relu=True), relu=True)
         for conv, f in zip(self.up_convs, self.factors[:-1]):
             h = F.relu(F.pixel_shuffle(conv(h), f))
         return _add_residual(base, self.conv_out(h), self.factors)
@@ -142,8 +159,7 @@ class _ResBlock(nn.Module):
         self.res_scale = res_scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.relu(self.conv0(x), inplace=True))
-        return x + h * self.res_scale
+        return self.conv1(self.conv0(x, relu=True), residual=x, res_scale=self.res_scale)
 
 
 class _CABlock(nn.Module):
@@ -160,7 +176,7 @@ class _CABlock(nn.Module):
         self.res_scale = res_scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.relu(self.conv0(x), inplace=True))
+        h = self.conv1(self.conv0(x, relu=True))
         s = h.float().mean(dim=(2, 3), keepdim=True).to(h.dtype)
         s = torch.sigmoid(self.att1(F.relu(self.att0(s))))
         return x + h * s * self.res_scale
@@ -204,7 +220,7 @@ class EDSR(nn.Module):
         h = h0
         for block in self.blocks:
             h = block(h)
-        h = self.body_out(h) + h0
+        h = self.body_out(h, residual=h0)
         for conv, f in zip(self.up_convs, self.factors[:-1]):
             h = F.pixel_shuffle(conv(h), f)
         return _add_residual(base, self.tail(h), self.factors)

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import threading
 from functools import lru_cache
 from typing import Dict, Optional, Tuple
@@ -42,7 +41,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ...utils import profiling
-from ...utils.build import PACKAGE_DIR, build_shared
+from ...utils.build import NVCC_FLAGS, PACKAGE_DIR, build_shared, nvcc
 
 __all__ = [
     "LAUNCHES",
@@ -55,10 +54,6 @@ __all__ = [
 ]
 
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "pyramid.cu")
-NVCC_FLAGS = (
-    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 # Kernel launches since the last reset, by wrapper name. Only a launch of
 # the CUDA kernel counts; the plain versions never do.
@@ -86,27 +81,15 @@ def _record(name: str, x: torch.Tensor, out: torch.Tensor, launched: bool) -> to
     return out
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    home = os.environ.get("CUDA_HOME") or CUDA_HOME
-    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
-        return os.path.join(home, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the pyramid kernels need the CUDA toolkit")
-
-
 def load_library() -> ctypes.CDLL:
     """Build (once) and load the kernels' shared library."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            nvcc = _nvcc()
+            compiler = nvcc()
             path = build_shared(
                 "srs_pyramid", [SOURCE],
-                lambda out: [nvcc, *NVCC_FLAGS, "-o", out, SOURCE],
+                lambda out: [compiler, *NVCC_FLAGS, "-o", out, SOURCE],
             )
             lib = ctypes.CDLL(path)
             i64, ptr = ctypes.c_int64, ctypes.c_void_p

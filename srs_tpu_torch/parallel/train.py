@@ -39,6 +39,7 @@ from torch.func import functional_call
 
 from ..models.nets import _CABlock, Conv2d
 from ..models.train import ClippedAdam
+from ..ops.cuda.epilogue import conv_epilogue_plain
 from .mesh import Mesh
 
 __all__ = ["receptive_radius", "shard_params", "sharded_train_step"]
@@ -54,7 +55,8 @@ class _OutSplitConv2d(Conv2d):
 
     model_devices: List[torch.device]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: Optional[torch.Tensor] = None, res_scale: float = 1.0) -> torch.Tensor:
         w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
         n = self.out_channels // len(self.model_devices)
         outs = []
@@ -62,7 +64,7 @@ class _OutSplitConv2d(Conv2d):
             part = slice(i * n, (i + 1) * n)
             y = self._conv_forward(x.to(dev), w[part].to(dev), b[part].to(dev))
             outs.append(y.to(x.device))
-        return torch.cat(outs, dim=1)
+        return conv_epilogue_plain(torch.cat(outs, dim=1), None, relu, residual, res_scale)
 
 
 def receptive_radius(net: nn.Module) -> int:

@@ -13,11 +13,18 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 from typing import Callable, Dict, List, Sequence
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The CUDA kernels' flags: Hopper's sm_90a, a plain C interface for
+# ctypes, and ptxas' registers and spills in the build's log.
+NVCC_FLAGS = (
+    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
 _locks: Dict[str, threading.Lock] = {}
 _locks_guard = threading.Lock()
 
@@ -26,6 +33,20 @@ def build_dir() -> str:
     path = os.environ.get("SRS_TORCH_BUILD_DIR") or os.path.join(PACKAGE_DIR, "_build")
     os.makedirs(path, exist_ok=True)
     return path
+
+
+def nvcc() -> str:
+    """Path of the CUDA toolkit's ``nvcc``: on ``PATH``, else under
+    ``CUDA_HOME``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    home = os.environ.get("CUDA_HOME") or CUDA_HOME
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
 
 
 def build_shared(
