@@ -7,15 +7,16 @@
 For each seed, each of the run's checked images (the traffic file's
 ``check_jobs``) goes through the plain reference ("tf32", as a run
 compares) and through each variant put in the program's place: "fp8",
-the control (every convolution in float8 e4m3, one precision step below
-the configuration's bfloat16, and QA in float32 with TF32, the step below
-its float32); "fp32", the reference with TF32 off, which shows how much
+the control (every convolution, linear layer and product of the nets in
+float8 e4m3, one precision step below the configuration's bfloat16, and
+QA in float32 with TF32, the step below its float32); "fp32", the reference with TF32 off, which shows how much
 of a reading the reference's own TF32 makes; and the planted faults
 "half_tiles" (half of the tiles served by bicubic alone) and "one_pass"
 (each dihedral member run once). Each line printed is the comparison's
 numbers for one variant and image, as a run prints them for the
-program; a limit has to lie below the control's readings. The
-benchmark's own runs never run this.
+program; a limit has to lie below the control's readings. Seeded nets
+(``yardstick/weights.py``) are drawn by ``reference.run`` for every
+variant alike. The benchmark's own runs never run this.
 """
 
 from __future__ import annotations

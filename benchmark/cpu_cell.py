@@ -40,3 +40,13 @@ CELL = {"name": "cpu-toy", "config": "cpu-toy", "traffic": "cpu-toy", "chips": 1
 END_TO_END = [{"name": n, "unit": u} for n, u in
               (("mp_per_s", "MP/s"), ("peak_gib", "GiB"), ("tiff_bytes_per_px", "B/px"),
                ("setup_s", "s"))]
+
+# The toy with seeded weights in place of the store's trained espcn: drawn
+# by ``yardstick/weights.py`` and handed to the program as a
+# ``checkpoint_dir``. Unrouted: a random net loses to bicubic, so the
+# SR-gain probe would shrink it.
+SEEDED_CONFIG = {
+    **CONFIG, "name": "cpu-toy-seeded",
+    "pipeline": {**CONFIG["pipeline"], "auto_route": False},
+    "nets": {"espcn": {**CONFIG["nets"]["espcn"], "weights": {"seed": 11}}},
+}

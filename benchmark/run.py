@@ -5,20 +5,23 @@
 
 from the root of a checkout. The cell (``BENCHMARK.json``'s ``workloads``)
 names a configuration, ``benchmark/configs/<config>.json`` (the
-``PipelineConfig`` flags, the route it serves, the nets' widths, the
-limits of the check), and a traffic mix, ``benchmark/traffic/<mix>.json``
-(the entry, the jobs per call, the workers, the input recipe). Each
-per-layer metric is a reader of its own, ``benchmark/metrics/<metric>.py``.
+``PipelineConfig`` flags, the route it serves, the nets' kinds and
+widths, each kind's reference in ``yardstick/nets/<kind>.py``, and the
+limits of the check; a net entry with ``"weights": {"seed": <n>}`` is
+served seeded weights, ``yardstick/weights.py``), and a traffic mix,
+``benchmark/traffic/<mix>.json`` (the entry, the jobs per call, the
+workers, the input recipe). Each per-layer metric is a reader of its own,
+``benchmark/metrics/<metric>.py``.
 
 A run: set-up (imports, the kernels' and the writer's builds, the store's
-nets, the inputs, a warm-up of the cell's shapes), then the window, which
-starts whole calls of the program's entry (``process()`` or
-``process_batch()``) while ``--seconds`` have not passed and ends when the
-last call has closed its TIFFs; then, with the program's state freed, the
-plain reference of each checked image and the comparison. The last line
-of standard output is the result; the last lines of standard error are
-the numbers compared, each beside its limit (over several checked
-images, the largest reading).
+nets and the seeded ones, the inputs, a warm-up of the cell's shapes),
+then the window, which starts whole calls of the program's entry
+(``process()`` or ``process_batch()``) while ``--seconds`` have not
+passed and ends when the last call has closed its TIFFs; then, with the
+program's state freed, the plain reference of each checked image and the
+comparison. The last line of standard output is the result; the last
+lines of standard error are the numbers compared, each beside its limit
+(over several checked images, the largest reading).
 
 The checked jobs are the traffic file's ``check_jobs``: the window's
 first job, whose file gives ``tiff_bytes_per_px``, and further jobs drawn
@@ -62,7 +65,7 @@ for _p in (ROOT, HERE):  # the program from this checkout, the yardstick beside 
 
 import numpy as np  # noqa: E402
 
-from yardstick import check, flops, inputs, peaks, reference  # noqa: E402
+from yardstick import check, flops, inputs, peaks, reference, weights  # noqa: E402
 from yardstick import pyramid as pyr  # noqa: E402
 from yardstick import trace as tr  # noqa: E402
 from yardstick.tiff import read_tiff  # noqa: E402
@@ -168,6 +171,18 @@ class Outputs:
         self.dir = tempfile.mkdtemp(prefix="srs-bench-")
         self.n = 0
 
+    def save_weights(self, seeded) -> str:
+        """The seeded nets (``weights.seeded``) as ``{name}_x{scale}.pt``
+        in a directory of their own, which the program reads as its
+        ``checkpoint_dir``."""
+        import torch
+
+        path = os.path.join(self.dir, "weights")
+        os.makedirs(path)
+        for (name, scale), sd in seeded.items():
+            torch.save(sd, os.path.join(path, f"{name}_x{scale}.pt"))
+        return path
+
     def next(self, real: bool = False) -> str:
         path = os.path.join(self.dir, f"job{self.n:05d}.tiff")
         self.n += 1
@@ -257,19 +272,23 @@ def run_cell(cell: dict, config: dict, traffic: dict, end_to_end: list, per_laye
     pool = inputs.load_pool(traffic["input"], cache_dir)
     split["inputs"] = time.perf_counter() - t
 
-    t = time.perf_counter()
-    pipe = Observed(PipelineConfig(**{**config["pipeline"], "device": device}))
-    for scale, members in zip(config["route"]["ladder"], config["route"]["steps"]):
-        for name, _passes in members:
-            pipe.sr_module.weights.get((name, int(scale)))  # the store's decode
-    split["store"] = time.perf_counter() - t
-
-    per_call = int(traffic["jobs_per_call"])
-    workers = int(traffic.get("workers", 1))
-    batched = traffic["entry"] == "process_batch"
-    checked_jobs = inputs.checked_jobs(traffic["check_jobs"], seed)
     outs = Outputs()
     try:
+        t = time.perf_counter()
+        # Seeded nets reach the program as a user's own weights would.
+        seeded = weights.seeded(config)
+        served = {"checkpoint_dir": outs.save_weights(seeded)} if seeded else {}
+        del seeded
+        pipe = Observed(PipelineConfig(**{**config["pipeline"], "device": device, **served}))
+        for scale, members in zip(config["route"]["ladder"], config["route"]["steps"]):
+            for name, _passes in members:
+                pipe.sr_module.weights.get((name, int(scale)))  # decoded or read once
+        split["store"] = time.perf_counter() - t
+
+        per_call = int(traffic["jobs_per_call"])
+        workers = int(traffic.get("workers", 1))
+        batched = traffic["entry"] == "process_batch"
+        checked_jobs = inputs.checked_jobs(traffic["check_jobs"], seed)
         def call(images, start=None):
             """One call of the entry; [(output path, result)]. ``start``,
             the window's index of the call's first job (None in the

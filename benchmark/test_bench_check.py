@@ -12,7 +12,7 @@ import torch
 
 import cpu_cell
 import run
-from yardstick import check, inputs, reference
+from yardstick import check, inputs, reference, weights
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 STORE = os.path.join(os.path.dirname(HERE), "srs_tpu_torch", "models", "checkpoints")
@@ -23,9 +23,9 @@ def _config(name):
         return json.load(f)
 
 
-def _run(tmp_path, fault=None, seed=5):
+def _run(tmp_path, fault=None, seed=5, config=cpu_cell.CONFIG):
     torch.set_num_threads(2)
-    return run.run_cell(cpu_cell.CELL, cpu_cell.CONFIG, cpu_cell.TRAFFIC, cpu_cell.END_TO_END,
+    return run.run_cell(cpu_cell.CELL, config, cpu_cell.TRAFFIC, cpu_cell.END_TO_END,
                         [], seed, 0.0, False, device="cpu", cache_dir=str(tmp_path / "cache"),
                         log=lambda s: None, fault=fault)
 
@@ -35,6 +35,44 @@ def test_a_sound_run_is_correct(tmp_path):
     assert res["correct"], res["check"]
     assert res["attempted"] == cpu_cell.TRAFFIC["jobs_per_call"] and res["failed"] == 0
     assert list(res)[-1] == "check"
+
+
+def test_seeded_weights_run_correct_and_clip_little(tmp_path):
+    """The toy with seeded espcn weights: the program, handed them as a
+    checkpoint directory, agrees with the reference, which draws them
+    itself; two draws are equal; under 1% of the net's output clips."""
+    cfg = cpu_cell.SEEDED_CONFIG
+    res = _run(tmp_path, config=cfg)
+    assert res["correct"], res["check"]
+    a, b = weights.seeded(cfg), weights.seeded(cfg)
+    assert list(a) == [("espcn", 3)]
+    for k, v in a[("espcn", 3)].items():
+        torch.testing.assert_close(v, b[("espcn", 3)][k], atol=0, rtol=0)
+    nets = reference.Nets(reference.Store(STORE, "cpu", a), cfg["nets"])
+    pool = inputs.load_pool(cpu_cell.TRAFFIC["input"], str(tmp_path / "cache"))
+    with torch.inference_mode():
+        x = torch.stack([torch.from_numpy(img) for img in pool.values()])
+        for _step in cfg["route"]["ladder"]:
+            y = nets.forward("espcn", 3, x)
+            assert float(((y < 0) | (y > 255)).float().mean()) < 0.01
+            x = y.clamp(0, 255)
+
+
+def test_weights_of_another_seed_are_not_correct(tmp_path):
+    """The program served another seed's espcn, the route unchanged."""
+    other = weights.seeded({**cpu_cell.SEEDED_CONFIG,
+                            "nets": {"espcn": {**cpu_cell.CONFIG["nets"]["espcn"],
+                                               "weights": {"seed": 12}}}})
+
+    def swap(pipe):
+        pipe.sr_module.weights[("espcn", 3)] = other[("espcn", 3)]
+        pipe.sr_module._nets.clear()  # the nets the warm-up built
+
+    res = _run(tmp_path, fault=swap, config=cpu_cell.SEEDED_CONFIG)
+    assert not res["correct"]
+    assert res["check"]["route_differs"]["value"] == 0
+    tiff = res["check"]["tiff_mean_abs_lsb"]
+    assert tiff["value"] > tiff["limit"], res["check"]
 
 
 def _answer_altered(pipe):

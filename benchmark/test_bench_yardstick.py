@@ -1,14 +1,18 @@
 """The yardstick's frozen copies and the plain reference, held against the
 program as it stands (on the CPU, at small sizes)."""
 
+import importlib
+import importlib.util
 import json
 import os
+import shutil
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from yardstick import flops, inputs, pyramid, reference as R, trace
+from yardstick import flops, inputs, pyramid, reference as R, trace, weights
 from yardstick.tiff import read_tiff
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -237,3 +241,176 @@ def test_routing_selection_and_fusion_match_the_program():
     theirs = routing.probe_sr_alpha(img, "espcn", 3, weights=w, device="cpu")
     assert gain == pytest.approx(theirs[0], abs=0.05)
     assert alpha == pytest.approx(theirs[1], abs=0.02)
+
+
+TOY = '''"""One 3x3 convolution to channels * scale**2 and a shuffle, on a
+bicubic upsample: a kind that lives in this file alone."""
+import torch
+
+from . import edsr
+
+
+def convs(spec, scale):
+    return [(3 * scale * scale, 3, 3, 3, "bias", 1)]
+
+
+def flops_per_pixel(spec, scale):
+    return float(2 * 3 * scale * scale * 3 * 9)
+
+
+def init(spec, scale, generator):
+    return {"conv.weight": torch.rand((3 * scale * scale, 3, 3, 3), generator=generator) * 0.01,
+            "conv.bias": torch.zeros(3 * scale * scale)}
+
+
+def forward(sd, spec, scale, x, ops):
+    return edsr.bicubic_residual(
+        x, scale, lambda h: ops.conv(h, sd["conv.weight"], sd["conv.bias"], 1))
+'''
+
+
+def _yardstick_copy(tmp_path, name):
+    """A copy of the yardstick under ``tmp_path``, imported as the package
+    ``name``."""
+    root = str(tmp_path / "yardstick")
+    shutil.copytree(os.path.join(HERE, "yardstick"), root,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(root, "__init__.py"),
+                                                  submodule_search_locations=[root])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[name] = pkg
+    spec.loader.exec_module(pkg)
+    return root
+
+
+def test_a_net_kind_is_one_file(tmp_path):
+    """A kind dropped in as ``nets/<kind>.py`` runs, counts and draws with
+    no other edit; a kind with no file raises naming the file."""
+    name = "yardstick_with_toy"
+    root = _yardstick_copy(tmp_path, name)
+    with open(os.path.join(root, "nets", "toy.py"), "w") as f:
+        f.write(TOY)
+    try:
+        ref = importlib.import_module(f"{name}.reference")
+        fl = importlib.import_module(f"{name}.flops")
+        w = importlib.import_module(f"{name}.weights")
+        spec = {"kind": "toy", "weights": {"seed": 3}}
+        cfg = {"nets": {"toy": spec}, "pipeline": {"compute_dtype": "bfloat16"},
+               "route": {"ladder": [3], "steps": [[["toy", 2]]], "block": 8, "tiles": 2}}
+        assert fl.conv_shapes(spec, 3) == [(27, 3, 3, 3)]
+        assert fl.flops_per_pixel(spec, 3) == 2 * 27 * 3 * 9
+        assert fl.image_flops(cfg) == 2 * 2 * 27 * 3 * 9 * 8 * 8 * 2
+        assert fl.image_epilogue(cfg) == (2, 2 * 2 * 27 * 8 * 8 * 2 * 2)
+        seeded = w.seeded(cfg)
+        assert list(seeded) == [("toy", 3)]
+        store = ref.Store(STORE, "cpu", seeded)
+        assert store.has("toy", 3) and not store.has("toy", 2)
+        x = torch.rand(1, 5, 7, 3) * 255
+        got = ref.Nets(store, cfg["nets"]).forward("toy", 3, x)
+        sd = seeded[("toy", 3)]
+        r = torch.nn.functional.conv2d((x / 255.0 - 0.5).permute(0, 3, 1, 2), sd["conv.weight"],
+                                       sd["conv.bias"], padding=1)
+        want = R.resize(x, 15, 21) + torch.nn.functional.pixel_shuffle(r, 3).permute(
+            0, 2, 3, 1) * 255.0
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        for call in (lambda: fl.conv_shapes({"kind": "nokind"}, 3),
+                     lambda: fl.flops_per_pixel({"kind": "nokind"}, 3),
+                     lambda: ref.Nets(store, {"n": {"kind": "nokind"}}).forward("n", 3, x)):
+            with pytest.raises(ValueError, match="nets/nokind.py"):
+                call()
+        with pytest.raises(ValueError, match="nets/toy.py"):
+            flops.conv_shapes({"kind": "toy"}, 3)  # the tree's own yardstick has no toy
+    finally:
+        for key in [k for k in sys.modules if k == name or k.startswith(name + ".")]:
+            del sys.modules[key]
+
+
+def test_seeded_weights_are_the_same_draw_under_the_programs_names():
+    """Each kind's ``init`` draws the program's parameter names and shapes,
+    the same tensors from the same entry seed in every call, other ones
+    for another seed, name or scale."""
+    from srs_tpu_torch.models.registry import _make
+
+    specs = _config("fusion-100mp")["nets"]
+    for name, spec in specs.items():
+        cfg = {"nets": {name: {**spec, "weights": {"seed": 5}}},
+               "route": {"ladder": [2, 3], "steps": [[[name, 1]], [[name, 8]]]}}
+        a, b = weights.seeded(cfg), weights.seeded(cfg)
+        assert list(a) == [(name, 2), (name, 3)]
+        for key, sd in a.items():
+            theirs = _make(name, key[1], torch.float32).state_dict()
+            assert sorted(sd) == sorted(theirs)
+            for k, v in sd.items():
+                assert v.dtype == torch.float32 and v.shape == theirs[k].shape, k
+                torch.testing.assert_close(v, b[key][k], atol=0, rtol=0)
+        other = weights.seeded({**cfg, "nets": {name: {**spec, "weights": {"seed": 6}}}})
+        for key, sd in a.items():
+            assert any(not torch.equal(v, other[key][k]) for k, v in sd.items())
+        assert any(not torch.equal(v, a[(name, 3)][k]) for k, v in a[(name, 2)].items()
+                   if v.shape == a[(name, 3)][k].shape)
+    assert weights.net_seed(5, "edsr_xl", 3) != weights.net_seed(5, "edsr_xl", 2)
+
+
+def test_epilogue_launches_and_bytes_of_the_fusion_tier():
+    """1390 epilogue launches an image (a pass: 35 of edsr_xl and edsr_l,
+    43 of rcan, 19 of edsr_m, 3 of espcn), and the bytes of one edsr_xl
+    layer at [6, 128, 1536^2] give chip_smoke's bounds: 2.164 ms for the
+    bias and ReLU forms, 3.245 ms for the residual."""
+    cfg = _config("fusion-100mp")
+    launches, nbytes = flops.image_epilogue(cfg)
+    assert launches == 1390
+    specs = cfg["nets"]
+    per_pass = {n: len(flops.conv_shapes(specs[n], 3)) for n in specs}
+    assert per_pass == {"edsr_xl": 35, "edsr_l": 35, "edsr_m": 19, "rcan": 43, "espcn": 3}
+    one = {"pipeline": cfg["pipeline"], "nets": {"edsr_xl": specs["edsr_xl"]},
+           "route": {"ladder": [3], "steps": [[["edsr_xl", 1]]], "block": 1536, "tiles": 6}}
+    forms = [c[4] for c in R.kinds.load("edsr").convs(specs["edsr_xl"], 3)]
+    bias_ms = 6 * 128 * 1536 ** 2 * 2 * 2 / 3.35e12 * 1e3
+    assert round(bias_ms, 3) == 2.164 and round(bias_ms * 1.5, 3) == 3.245
+    want = (forms.count("bias") - 1 + forms.count("relu") + 1.5 * forms.count("residual")
+            + 27 / 128) * bias_ms
+    assert flops.image_epilogue(one)[1] / 3.35e12 * 1e3 == pytest.approx(want, rel=1e-12)
+    assert forms.count("residual") == 17 and forms.count("relu") == 16
+
+
+def test_epilogue_roofline_reads_a_synthetic_trace():
+    import run
+
+    class Done:
+        success = True
+
+    cfg = _config("fusion-100mp")
+    _launches, nbytes = flops.image_epilogue(cfg)
+    bound_s = nbytes / 3.35e12
+    # two images' epilogue at 80% of the bound, split over launches, one
+    # straddling the window's start; other kernels and a launch outside
+    kernels = [(1e6, 1e6 + 0.5 * bound_s / 0.8 * 1e6, "void conv_epilogue_kernel<bf16, 1, true>"),
+               (3e6, 3e6 + 1.5 * bound_s / 0.8 * 1e6, "void conv_epilogue_kernel<bf16, 2, false>"),
+               (5e6, 6e6, "cudnn_conv"), (0.0, 1e5, "void conv_epilogue_kernel<bf16, 0, true>")]
+    t = {"kernels": kernels, "lo": 5e4, "hi": 9e6}
+    read = run.load_reader("epilogue_roofline_pct")
+    got = read({"config": cfg, "results": [Done(), Done()], "trace": t,
+                "bytes_per_s": 3.35e12})
+    ran = 0.5 * bound_s / 0.8 + 1.5 * bound_s / 0.8 + 0.05
+    assert got == pytest.approx(100.0 * 2 * bound_s / ran, rel=1e-9)
+    assert read({"config": cfg, "results": [Done()], "trace": {**t, "kernels": kernels[2:3]},
+                 "bytes_per_s": 3.35e12}) is None
+    assert read({"config": cfg, "results": [], "trace": t, "bytes_per_s": 3.35e12}) is None
+
+
+def test_ops_round_every_product_in_the_control():
+    """The control's float8 reaches linear layers and products as it does
+    convolutions; the reference's own precision leaves them exact."""
+    g = torch.Generator().manual_seed(1)
+    x, w, b = (torch.randn(s, generator=g) for s in ((4, 8), (6, 8), (6,)))
+    q = R._fp8
+    torch.testing.assert_close(R.Ops("fp8").linear(x, w, b),
+                               torch.nn.functional.linear(q(x), q(w), b), atol=0, rtol=0)
+    torch.testing.assert_close(R.Ops("fp8").matmul(x, w.T), q(x) @ q(w.T), atol=0, rtol=0)
+    torch.testing.assert_close(R.Ops("tf32").matmul(x, w.T), x @ w.T, atol=0, rtol=0)
+    assert not torch.equal(R.Ops("fp8").linear(x, w, b), R.Ops("tf32").linear(x, w, b))
+    c = torch.randn((2, 3, 5, 5), generator=g)
+    k = torch.randn((4, 3, 3, 3), generator=g)
+    torch.testing.assert_close(R.Ops("fp8").conv(c, k, None, 1),
+                               torch.nn.functional.conv2d(q(c), q(k), None, padding=1),
+                               atol=0, rtol=0)

@@ -1,34 +1,37 @@
 """The plain reference of the served path, in PyTorch and numpy only.
 
-From the same input and the same store files as the program, it works
-out again what the program's ``process()`` produces for one image of a
+From the same input and the same store files (or the seeded weights a
+configuration names, ``weights.py``) as the program, it works out again
+what the program's ``process()`` produces for one image of a
 configuration: the degradation estimate and the SR-gain probe (route and
 alpha), the ladder, the net of each step (per-scale selection from the
 store's ``EVAL.json``, fusion's members from its ``FUSION.json``), the
-tile layout and the mirror-padded tiles, the nets (EDSR, RCAN, ESPCN,
-the bicubic base, the dihedral ensemble, fusion's weighted sum), the
-Laplacian canvas-pyramid blend with ramp weights, the crop and the
-bicubic resize to the target, the 8-bit quantize, and the QA report's
-full-reference values on the input-size proxy (PSNR, SSIM, MS-SSIM and
-both LPIPS distances, the LPIPS features read from the store's files by
-the reader below). It follows the published arithmetic (cv2's bicubic
-and pyramid rules, EDSR/RCAN/ESPCN as the configuration's widths state
-them), one step at a time, with no kernels, no banding and no batching.
+tile layout and the mirror-padded tiles, the nets (each kind by its
+module under ``nets/``, the bicubic base, the dihedral ensemble, fusion's
+weighted sum), the Laplacian canvas-pyramid blend with ramp weights, the
+crop and the bicubic resize to the target, the 8-bit quantize, and the
+QA report's full-reference values on the input-size proxy (PSNR, SSIM,
+MS-SSIM and both LPIPS distances, the LPIPS features read from the
+store's files by the reader below). It follows the published arithmetic
+(cv2's bicubic and pyramid rules, each net as the configuration's widths
+state it), one step at a time, with no kernels, no banding and no
+batching.
 
 ``precision`` names the variant. "tf32", the reference: the nets'
-convolutions in float32 with TF32 (a 10-bit mantissa, above the
-configuration's bfloat16) and everything else in float32, QA in float64.
-"fp32": the same with TF32 off. "fp8", the control: every convolution's
-input and weight rounded to float8 e4m3 (per-tensor scale), the step
-below the configuration's bfloat16, and QA in float32 with TF32, the
-step below its float32. Two planted faults, at the reference's
-precision, serve the check's readings: "half_tiles" serves half of the
-tiles by bicubic alone (work left out), "one_pass" runs each dihedral
-member once (passes left out).
+convolutions, linear layers and products (``Ops``) in float32 with TF32
+(a 10-bit mantissa, above the configuration's bfloat16) and everything
+else in float32, QA in float64. "fp32": the same with TF32 off. "fp8",
+the control: the two inputs of every such product rounded to float8
+e4m3 (per-tensor scale), the step below the configuration's bfloat16,
+and QA in float32 with TF32, the step below its float32. Two planted
+faults, at the reference's precision, serve the check's readings:
+"half_tiles" serves half of the tiles by bicubic alone (work left out),
+"one_pass" runs each dihedral member once (passes left out).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -39,6 +42,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import nets as kinds
+from . import weights
 
 _A = -0.75  # cv2's bicubic coefficient
 _G = (1.0 / 16, 4.0 / 16, 6.0 / 16, 4.0 / 16, 1.0 / 16)
@@ -79,19 +85,27 @@ def read_store_file(path: str) -> Dict[str, torch.Tensor]:
 
 
 class Store:
-    """The store directory: nets by (name, scale), read once each."""
+    """The store directory: nets by (name, scale), read once each. The
+    seeded nets of a configuration (``weights.seeded``), where given, come
+    before the store's files, so routing, selection and the ladder count
+    them as trained."""
 
-    def __init__(self, path: str, device):
+    def __init__(self, path: str, device,
+                 seeded: Optional[Dict[Tuple[str, int], Dict[str, torch.Tensor]]] = None):
         self.path, self.device = path, device
+        self.seeded = dict(seeded or {})
         self._nets: Dict[Tuple[str, int], Dict[str, torch.Tensor]] = {}
 
     def has(self, name: str, scale: int) -> bool:
-        return os.path.isfile(os.path.join(self.path, f"{name}_x{scale}.srsw"))
+        return ((name, int(scale)) in self.seeded
+                or os.path.isfile(os.path.join(self.path, f"{name}_x{scale}.srsw")))
 
     def state(self, name: str, scale: int) -> Dict[str, torch.Tensor]:
         key = (name, int(scale))
         if key not in self._nets:
-            sd = read_store_file(os.path.join(self.path, f"{name}_x{scale}.srsw"))
+            sd = self.seeded.get(key)
+            if sd is None:
+                sd = read_store_file(os.path.join(self.path, f"{name}_x{scale}.srsw"))
             self._nets[key] = {k: v.to(self.device, torch.float32) for k, v in sd.items()}
         return self._nets[key]
 
@@ -200,53 +214,57 @@ def _fp8(t: torch.Tensor) -> torch.Tensor:
     return (t * s).to(torch.float8_e4m3fn).to(torch.float32) / s
 
 
+class Ops:
+    """The nets' tensor-core steps at a precision: "tf32" runs them as
+    ``run`` sets the convolutions (TF32 for the reference, float32 for
+    "fp32"); "fp8" rounds every product's two inputs to float8 e4m3 first
+    (the control)."""
+
+    def __init__(self, precision: str = "tf32"):
+        self.fp8 = precision == "fp8"
+
+    def conv(self, x, w, b=None, padding=0):
+        if self.fp8:
+            x, w = _fp8(x), _fp8(w)
+        return F.conv2d(x, w, b, padding=padding)
+
+    def linear(self, x, w, b=None):
+        if self.fp8:
+            x, w = _fp8(x), _fp8(w)
+        with _matmul_like_conv():
+            return F.linear(x, w, b)
+
+    def matmul(self, a, b):
+        if self.fp8:
+            a, b = _fp8(a), _fp8(b)
+        with _matmul_like_conv():
+            return a @ b
+
+
+@contextlib.contextmanager
+def _matmul_like_conv():
+    """Matrix products in TF32 exactly where the convolutions are."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 class Nets:
     """Plain forward passes of the configuration's nets on NHWC float32
-    [0, 255] batches, bicubic-residual: output = bicubic(x) + 255 *
-    net((x / 255 - 0.5))."""
+    [0, 255] batches, each by its kind's module (``nets/<kind>.py``)."""
 
     def __init__(self, store: Store, specs: Dict[str, dict], precision: str = "tf32"):
         self.store, self.specs, self.precision = store, specs, precision
+        self.ops = Ops(precision)
         self.fault: Optional[str] = None
 
-    def _conv(self, h, sd, key, pad):
-        w, b = sd[f"{key}.weight"], sd[f"{key}.bias"]
-        if self.precision == "fp8":
-            h, w = _fp8(h), _fp8(w)
-        return F.conv2d(h, w, b, padding=pad)
-
     def forward(self, name: str, scale: int, x: torch.Tensor) -> torch.Tensor:
-        spec, sd = self.specs[name], self.store.state(name, scale)
-        factors, s = [], int(scale)
-        for f in (2, 3):
-            while s % f == 0:
-                factors.append(f)
-                s //= f
-        base = resize(x, x.shape[1] * scale, x.shape[2] * scale)
-        h = (x / 255.0 - 0.5).permute(0, 3, 1, 2)
-        if spec["kind"] == "espcn":
-            h = F.relu(self._conv(F.relu(self._conv(h, sd, "conv_in", 2)), sd, "conv_mid", 1))
-            for i, f in enumerate(factors[:-1]):
-                h = F.relu(F.pixel_shuffle(self._conv(h, sd, f"up_convs.{i}", 1), f))
-            r = self._conv(h, sd, "conv_out", 1)
-        else:
-            res_scale = float(spec.get("res_scale", 0.1))
-            h0 = self._conv(h, sd, "head", 1)
-            h = h0
-            for i in range(int(spec["blocks"])):
-                y = self._conv(F.relu(self._conv(h, sd, f"blocks.{i}.conv0", 1)), sd,
-                               f"blocks.{i}.conv1", 1)
-                if spec["kind"] == "rcan":
-                    g = y.mean(dim=(2, 3), keepdim=True)
-                    g = F.relu(self._conv(g, sd, f"blocks.{i}.att0", 0))
-                    y = y * torch.sigmoid(self._conv(g, sd, f"blocks.{i}.att1", 0))
-                h = h + y * res_scale
-            h = self._conv(h, sd, "body_out", 1) + h0
-            for i, f in enumerate(factors[:-1]):
-                h = F.pixel_shuffle(self._conv(h, sd, f"up_convs.{i}", 1), f)
-            r = self._conv(h, sd, "tail", 1)
-        r = F.pixel_shuffle(r, factors[-1])
-        return base + r.permute(0, 2, 3, 1) * 255.0
+        spec = self.specs[name]
+        return kinds.load(spec["kind"]).forward(self.store.state(name, scale), spec, int(scale),
+                                                x, self.ops)
 
     def run(self, name: str, scale: int, x: torch.Tensor, passes: int) -> torch.Tensor:
         """One tile's net output, averaged over the 8 dihedral transforms
@@ -622,12 +640,13 @@ def run(image: np.ndarray, config: dict, store_dir: str, device,
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
     pc = config["pipeline"]
-    store = Store(store_dir, device)
+    store = Store(store_dir, device, weights.seeded(config))
     nets = Nets(store, config["nets"], "fp8" if precision == "fp8" else "tf32")
     nets.fault = precision if precision in ("half_tiles", "one_pass") else None
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    # TF32 reaches only the nets' convolutions: every other step here is
-    # elementwise, and the one matmul (the luma) stays in float32.
+    # TF32 reaches only the nets' tensor-core steps (``Ops``): every other
+    # step here is elementwise, and the one matmul (the luma) stays in
+    # float32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = precision != "fp32"
     try:
