@@ -16,14 +16,18 @@ in order, each printing one JSON line with its seconds:
    sizes, and at the edges of their row-streaming blocks, with their
    times beside the bound and a PyTorch library call; the conv epilogue
    (``ops/cuda/epilogue.py``) bit-equal to its plain version in each of
-   its three forms at the fusion cell's largest map ([6,128,1536^2],
+   its forms (HAT's GELU and LeakyReLU among them) at the fusion cell's
+   largest map ([6,128,1536^2],
    channels_last bf16), at odd channel counts, ragged ends and tiny
    maps, in the NCHW layout and in float32 and float16, timed beside its
    bound and the plain ops; and the nets' two
    routes bit-equal on the store's trained nets: each fusion member
    once on a [6,512^2] tile batch and ``edsr_xl+`` (8 dihedral passes)
    on both x3 steps' batches, the plain route being the parent's own
-   (the bias inside the conv call, then the separate ops);
+   (the bias inside the conv call, then the separate ops); HAT's window
+   attention (``ops/cuda/window_attn.py``) against its plain route as a
+   HAB, a shifted HAB and an OCAB at map edges, and timed beside its bound
+   and the plain route over one chunk of the HAT cell's 1536^2 tiles;
 4. reference: the whole pipeline on small inputs with seeded ``edsr_m``
    (the store hidden), on the card and on the CPU (plain versions): with
    routing, selection and QA off, TIFFs within 1 LSB; with them on (the
@@ -38,7 +42,9 @@ in order, each printing one JSON line with its seconds:
    against the plain version on the same input (the main path's own
    shapes and data: tile levels, canvas collapse steps and finalize
    bands), and once with the launch counts reset, which must show both
-   kernels;
+   kernels; then (``hat_path``) the same input and flags with seeded
+   HAT x3 at its published widths, every window attention a kernel
+   launch and every conv an epilogue launch;
 6. bench path: the same input through ``bench.py:69-83``'s configuration
    with seeded ``edsr_xl`` handed in (routing with the SR-gain probe,
    per-scale selection from the store's EVAL.json, QA with the store's
@@ -314,6 +320,7 @@ KERNEL_ATOL = 2.55e-4
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12  # dense, on the tensor cores
 
 # K2 cases at the edges of its blocking (a block covers 128 source
 # columns, 256 output, and 32 source rows, 64 output): sizes at those
@@ -606,7 +613,8 @@ EPILOGUE_OTHER_CASES = [((2, 64, 17, 13), "nchw", "bfloat16"), ((1, 3, 5, 7), "n
                         ((2, 27, 9, 11), "nhwc", "float32"), ((1, 64, 33, 31), "nhwc", "float32"),
                         ((1, 96, 7, 9), "nhwc", "float16"), ((1, 5, 3, 3), "nchw", "float16")]
 EPILOGUE_FORMS = {"bias": {}, "relu": {"relu": True},
-                  "residual": {"res_scale": 0.1}, "residual_scale_1": {"res_scale": 1.0}}
+                  "residual": {"res_scale": 0.1}, "residual_scale_1": {"res_scale": 1.0},
+                  "gelu": {"act": "gelu"}, "lrelu": {"act": "lrelu"}}
 # The fusion cell's largest map: edsr_xl on the second x3 step's batch.
 EPILOGUE_SHAPE = (6, 128, 1536, 1536)
 
@@ -618,7 +626,75 @@ def epilogue_work(shape, form: str) -> tuple:
     n = int(np.prod(shape))
     residual = form.startswith("residual")
     return 2 * n * (3 if residual else 2) + 2 * shape[1], n * (3 if residual else
-                                                               2 if form == "relu" else 1)
+                                                               2 if form != "bias" else 1)
+
+
+# HAT's window attention (``ops/cuda/window_attn.py``): its cases, [N, H, W]
+# of a 6-head, 30-wide qkv map, each as a HAB, a shifted HAB and an OCAB:
+# one window, the mask's last row and column, OCAB's padded keys on every
+# side, non-square maps, a batch; and its tolerance against the plain
+# route: 2^-6 of the largest output (the kernel rounds the probabilities to
+# bf16 for P V and the output to bf16: a few ulps).
+WINDOW_ATTN_CASES = [(1, 16, 16), (1, 32, 48), (2, 64, 32), (1, 80, 48), (2, 48, 160)]
+WINDOW_ATTN_TOL = 2.0 ** -6
+# The kernel table's shape: one chunk of the HAT cell's second x3 step.
+WINDOW_ATTN_SHAPE = (4, 1536, 1536)
+WINDOW_ATTN_MODES = {"hab": (0, 0), "hab_shifted": (8, 0), "ocab": (0, 8)}
+
+
+def check_window_attn(torch, W) -> dict:
+    """The window-attention kernel held against its plain route at the edge
+    cases and at the kernel table's shape (unit-scale q, k, v; a bias table
+    of scale 0.5), timed there beside its bound (bytes: q, k, v and the
+    output once each; FLOP: the two products, against the bf16 peak) and
+    the plain route."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst, cases = 0.0, {}
+
+    def tables():
+        return {ov: torch.randn(((31 if not ov else 39) ** 2, 6), generator=gen,
+                                device="cuda") * 0.5 for ov in (0, 8)}
+
+    def held(qkv, tab, shift, overlap):
+        with torch.inference_mode():
+            got = W.window_attn(qkv, tab[overlap], 6, 16, shift=shift, overlap=overlap)
+            want = W.window_attn_plain(qkv, tab[overlap], 6, 16, shift=shift, overlap=overlap)
+        return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+    for n, h, w in WINDOW_ATTN_CASES:
+        for scale in (1.0, 3.0):
+            qkv = (torch.randn((n, h, w, 540), generator=gen, device="cuda") * scale).to(
+                torch.bfloat16)
+            tab = tables()
+            for mode, (shift, overlap) in WINDOW_ATTN_MODES.items():
+                e = held(qkv, tab, shift, overlap)
+                cases[f"{n}x{h}x{w}@{scale} {mode}"] = e
+                worst = max(worst, e)
+    n, h, w = WINDOW_ATTN_SHAPE
+    qkv = torch.randn((n, h, w, 540), generator=gen, device="cuda").to(torch.bfloat16)
+    tab = tables()
+    timed = {}
+    for mode, (shift, overlap) in WINDOW_ATTN_MODES.items():
+        err = held(qkv, tab, shift, overlap)
+        worst = max(worst, err)
+        flop, nbytes = W.attention_work(n, h, w, 180, 6, 16, overlap)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: W.window_attn(qkv, tab[overlap], 6, 16, shift=shift,
+                                               overlap=overlap), 20)
+            plain_ms = cuda_ms(lambda: W.window_attn_plain(qkv, tab[overlap], 6, 16,
+                                                           shift=shift, overlap=overlap), 1)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flop / BF16_FLOPS) * 1e3
+        timed[mode] = {"ms": ms, "bound_ms": bound_ms,
+                       "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flop / BF16_FLOPS
+                       else "operations", "pct_of_bound": 100.0 * bound_ms / ms,
+                       "plain_ms": plain_ms, "rel_err": err, "bytes": nbytes, "flop": flop}
+    del qkv
+    torch.cuda.empty_cache()
+    if worst > WINDOW_ATTN_TOL:
+        fail(f"window_attn differs from its plain route: {worst} > {WINDOW_ATTN_TOL} of the "
+             f"largest output; {cases}")
+    return {"shape": list(WINDOW_ATTN_SHAPE) + [540], "tolerance": WINDOW_ATTN_TOL,
+            "max_rel_err": worst, "cases": cases, "modes": timed}
 
 
 def _nhwc_bf16(torch, shape, gen, lo=-4.0, hi=4.0, dtype=None):
@@ -1088,6 +1164,74 @@ def drive_path(torch, K, tmp: str, name: str, image: np.ndarray, weights=None,
         "output_means": [float(v) for v in mean_out],
         "save_breakdown": pipe.last_run_info["save_breakdown"],
     }, pipe, res, path
+
+
+def hat_weights(seed: int = 25) -> dict:
+    """Seeded HAT x3 at its published widths: the module's own draw
+    (PyTorch's defaults for the convolutions and linear layers) and bias
+    tables of std 0.02."""
+    import torch
+
+    from srs_tpu_torch.models.nets import HAT
+
+    torch.manual_seed(seed)
+    sd = HAT(3, dtype=torch.float32).state_dict()
+    for k, v in sd.items():
+        if k.endswith("relative_position_bias_table"):
+            sd[k] = torch.randn(v.shape) * 0.02
+    return {("hat", 3): sd}
+
+
+def hat_path(torch, K, tmp: str, image: np.ndarray) -> dict:
+    """``process()`` on the 720x1280 input to the 100MP preset with provider
+    ``quality`` serving seeded HAT x3 (per-scale selection, routing and QA
+    off), warmed up, then timed: every window attention a kernel launch
+    (none plain), every conv an epilogue launch, HAT's pixels counted."""
+    import srs_tpu_torch.ops.cuda.epilogue as E
+    import srs_tpu_torch.ops.cuda.window_attn as W
+    from srs_tpu_torch.io.native import read_tiff
+    from srs_tpu_torch.pipeline import PipelineConfig, SuperResolutionPipeline
+
+    pipe = SuperResolutionPipeline(
+        PipelineConfig(**{**QUALITY_PATH, **QUALITY_FLAGS, "quality_model": "hat"}),
+        hat_weights())
+    path = os.path.join(tmp, "out_hat.tiff")
+    warm = pipe.process(image, path)
+    if not warm.success:
+        fail(f"hat: warm-up process() failed: {warm.error_message}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    W.reset_launches()
+    E.reset_launches()
+    t0 = time.time()
+    res = pipe.process(image, path)
+    elapsed = time.time() - t0
+    if not res.success:
+        fail(f"hat: process() failed: {res.error_message}")
+    sp = res.spans
+    attn = {"launches": W.LAUNCHES["window_attn"],
+            "counted": sp.get("count/window_attn.launches", 0),
+            "plain": sp.get("count/window_attn.plain", 0)}
+    tiles = pipe.last_run_info["num_tiles"]
+    chunk = pipe._chunk_tiles(512, [3, 3], "quality")
+    want = 2 * -(-tiles // chunk) * 42  # two steps, each chunk 36 HABs and 6 OCABs
+    if attn["launches"] != want or attn["counted"] != want or attn["plain"]:
+        fail(f"hat: window attention served off the kernel: {attn}, want {want} launches")
+    if E.LAUNCHES["conv_epilogue"] != sp.get("count/conv_epilogue.fused") or sp.get(
+            "count/conv_epilogue.plain"):
+        fail(f"hat: convolutions served without the epilogue kernel: {sp}")
+    out = read_tiff(path)
+    w, h = MAIN_OUT
+    if out.shape != (h, w, 3) or out.std() < 5:
+        fail(f"hat: output {out.shape}, std {out.std()}")
+    return {"elapsed_s": elapsed, "mp_per_s": w * h / 1e6 / elapsed,
+            "stage_times": res.stage_times, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "chunk": chunk, "num_tiles": tiles, "window_attn": attn,
+            "conv_epilogue_launches": E.LAUNCHES["conv_epilogue"],
+            "hat_span_s": sp.get("device/super_resolution/hat@x3",
+                                 sp.get("super_resolution/hat@x3")),
+            "window_attn_flop": sp.get("count/window_attn.flop"),
+            "window_attn_bytes": sp.get("count/window_attn.bytes")}
 
 
 def main_path(torch, K, tmp: str, image: np.ndarray):
@@ -4491,6 +4635,7 @@ def main() -> int:
     try:
         import srs_tpu_torch.ops.cuda.epilogue as E
         import srs_tpu_torch.ops.cuda.pyramid as K
+        import srs_tpu_torch.ops.cuda.window_attn as W
         from srs_tpu_torch.io import native
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the root of "
@@ -4505,20 +4650,23 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.time()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(K.load_library), pool.submit(E.load_library),
-                pool.submit(native.load_library)]
+                pool.submit(W.load_library), pool.submit(native.load_library)]
         for job in jobs:
             job.result()
     emit("build", t0, ptxas=ptxas_summary(K.load_library()._name + ".log")
-         + ptxas_summary(E.load_library()._name + ".log"))
+         + ptxas_summary(E.load_library()._name + ".log")
+         + ptxas_summary(W.load_library()._name + ".log"))
 
     tmp = tempfile.mkdtemp(prefix="srs_chip_smoke_")
     try:
         t0 = time.time()
         knums = check_kernels(torch, K)
         enums = check_epilogue(torch, E)
-        emit("kernels", t0, tolerance=KERNEL_ATOL, **knums, conv_epilogue=enums)
+        wnums = check_window_attn(torch, W)
+        emit("kernels", t0, tolerance=KERNEL_ATOL, **knums, conv_epilogue=enums,
+             window_attn=wnums)
 
         t0 = time.time()
         with store_masked(tmp):  # seeded edsr_m; selection finds no ledger
@@ -4528,6 +4676,9 @@ def main() -> int:
         t0 = time.time()
         main, main_pipe = main_path(torch, K, tmp, image)
         emit("main_path", t0, **main)
+
+        t0 = time.time()
+        emit("hat_path", t0, **hat_path(torch, K, tmp, image))
 
         t0 = time.time()
         bench, bench_pipe = bench_path(torch, K, tmp, image)

@@ -11,6 +11,8 @@
 //   form 0  y = y + b
 //   form 1  y = relu(y + b)
 //   form 2  y = x + s * (y + b)     (x the block's input, s its res_scale)
+//   form 3  y = gelu(y + b)         (the exact erf GELU, HAT's channel attention)
+//   form 4  y = leaky_relu(y + b)   (slope 0.01, HAT's conv_before_upsample)
 // y and x are one dense [N, C, H, W] layout, read as flat memory: value i
 // has channel (i / inner) mod C, inner 1 for channels_last (NHWC, the SR
 // nets') and H * W for NCHW (the generator's convs after a `cat` or an
@@ -20,7 +22,9 @@
 // result is bit-identical to the unfused ops: the bias add rounds to the
 // type, the ReLU is clamp_min's rule (NaN passes, else fmaxf with 0), the
 // scale multiplies by the float s (PyTorch's scalar 0.1 becomes 0.1f) and
-// rounds, the residual add rounds. Each step is an explicit _rn intrinsic,
+// rounds, the residual add rounds. GELU is ATen's GeluCUDAKernelImpl in
+// float, (x * 0.5f) * (1 + erff(x * (float)M_SQRT1_2)); LeakyReLU its
+// leaky_relu_kernel, x > 0 ? x : x * 0.01f (NaN takes the second arm). Each step is an explicit _rn intrinsic,
 // so no step fuses into an FMA across a rounding (in fp32 too, where the
 // rounding to the type is the identity).
 //
@@ -53,7 +57,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
-constexpr int kBias = 0, kRelu = 1, kResidual = 2;
+constexpr int kBias = 0, kRelu = 1, kResidual = 2, kGelu = 3, kLrelu = 4;
+constexpr float kSqrt1_2 = 0.70710678118654752440f;  // M_SQRT1_2, as ATen's float kAlpha
+constexpr float kLreluSlope = 0.01f;  // nn.LeakyReLU's default, as ATen's float negval
 constexpr int kBf16 = 0, kFp16 = 1, kFp32 = 2;
 
 template <typename T>
@@ -84,6 +90,12 @@ __device__ __forceinline__ T epilogue(T y, T b, T x, float s) {
   } else if (F == kResidual) {
     t = N::down(__fmul_rn(N::up(t), s));
     t = N::down(__fadd_rn(N::up(x), N::up(t)));
+  } else if (F == kGelu) {
+    const float f = N::up(t);
+    t = N::down(__fmul_rn(__fmul_rn(f, 0.5f), __fadd_rn(1.0f, erff(__fmul_rn(f, kSqrt1_2)))));
+  } else if (F == kLrelu) {
+    const float f = N::up(t);
+    t = N::down(f > 0.0f ? f : __fmul_rn(f, kLreluSlope));
   }
   return t;
 }
@@ -211,6 +223,10 @@ cudaError_t launch_form(int form, void* y, const void* b, const void* x, float s
       return launch<T, kRelu>(y, b, x, s, n, channels, inner, stream);
     case kResidual:
       return launch<T, kResidual>(y, b, x, s, n, channels, inner, stream);
+    case kGelu:
+      return launch<T, kGelu>(y, b, x, s, n, channels, inner, stream);
+    case kLrelu:
+      return launch<T, kLrelu>(y, b, x, s, n, channels, inner, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -224,7 +240,7 @@ extern "C" {
 // [N, C, H, W] layout whose value i has channel (i / inner) mod c, with
 // c * inner | n, 16-byte aligned; b [c]; x (form 2 only) laid out as y,
 // 16-byte aligned. form: 0 bias, 1 bias and ReLU, 2 bias, scale s and
-// residual x. Returns the launch's cudaError.
+// residual x, 3 bias and GELU, 4 bias and LeakyReLU. Returns the launch's cudaError.
 int srs_conv_epilogue(void* y, const void* b, const void* x, float s, int64_t n, int64_t c,
                       int64_t inner, int dtype, int form, void* stream) {
   if (n < 0 || c <= 0 || c > (1 << 20) || inner <= 0 || n % (c * inner) != 0 ||

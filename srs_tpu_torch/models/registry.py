@@ -1,7 +1,13 @@
 """Model registry: ESPCN, EDSR and RCAN nets by name (port of
 ``srs_tpu/models/registry.py:28-71``), plus the conditioned polish
 ``cond_polish`` (``models/conditioning.py``), which the reference builds
-beside the registry.
+beside the registry, and HAT (``hat``, ``nets.HAT``), which the JAX
+package does not have.
+
+An entry may state the bytes its pass holds live per input pixel
+(``in_px_bytes``), which the pipeline's chunk rule reads
+(``pipeline._chunk_tiles``) where they outweigh the CNNs' 160 bytes per
+output pixel: HAT's maps at its input's resolution do.
 
 Trained weights come, in this order, from (reference registry.py:106-134):
 
@@ -48,12 +54,13 @@ import torch
 
 from ..utils.device import resolve_device
 from .conditioning import CondPolish
-from .nets import EDSR, ESPCN, RCAN, shuffle_channel_order
+from .nets import EDSR, ESPCN, HAT, RCAN, shuffle_channel_order
 from .store import SUFFIX, StoreError, load_state, raw_sha256
 
 __all__ = [
     "ModelSpec",
     "MODEL_REGISTRY",
+    "PORT_ONLY",
     "build_model",
     "convert_flax_params",
     "seeded_params",
@@ -91,6 +98,14 @@ class ModelSpec:
     ctor: Callable[..., Any]
     kwargs: Dict[str, Any] = field(default_factory=dict)
     description: str = ""
+    in_px_bytes: float = 0  # live bytes of a pass per input pixel, where stated
+
+
+# HAT's live bytes per input pixel of a pass: the peak allocated over a
+# bfloat16 x3 pass on one 1536^2 tile, less the input, over its pixels:
+# 8.748 GB, 3708 bytes (one H100, PERF.md's kernel table); the same on six
+# 512^2 tiles.
+HAT_IN_PX_BYTES = 3708
 
 
 MODEL_REGISTRY: Dict[str, ModelSpec] = {
@@ -111,7 +126,11 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
     "edsr_l_tex": ModelSpec(
         "edsr_l_tex", EDSR, {"num_blocks": 16, "features": 96}, "texture-tier large net"
     ),
+    "hat": ModelSpec("hat", HAT, {}, "hybrid attention transformer (HAT, arXiv:2205.04437)",
+                     in_px_bytes=HAT_IN_PX_BYTES),
 }
+# Registry nets that the JAX package does not have.
+PORT_ONLY = ("hat",)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -195,8 +214,9 @@ def convert_flax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-# The layer each family zero-initialises: the residual's last conv.
-_LAST_CONVS = ("tail.", "conv_out.")
+# The layer each family zero-initialises: the residual's last conv (HAT's
+# ``conv_last``, whose zero output is the mean colour).
+_LAST_CONVS = ("tail.", "conv_out.", "conv_last.")
 
 
 def seeded_params(
@@ -460,4 +480,6 @@ def build_model(
     module = module.to(device=dev)
     module.load_state_dict({k: v.to(stored) for k, v in sd.items()})
     module.eval().requires_grad_(False)
+    if dev.type == "cuda" and hasattr(module, "load_kernels"):
+        module.load_kernels()  # HAT's window attention, built here rather than mid-pass
     return module, trained

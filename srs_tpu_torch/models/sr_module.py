@@ -14,7 +14,8 @@ serves every provider:
   falling back to ``quality`` where fewer than two are trained; each
   member's pass is a span ``super_resolution/<member>@x<scale>`` of the
   current job's record (``utils/profiling.span``, with device seconds on
-  a card);
+  a card), as is the one net's pass of every other provider (``<net>+``
+  under the self-ensemble);
 - ``bicubic`` and ``shrink`` (``bicubic + alpha * (net - bicubic)``);
 - ``zssr``: the net ``zssr_prepare`` (reference 612-650) tuned on the
   input itself, at the scale it was tuned for, with no IBP and no
@@ -443,7 +444,11 @@ class SuperResolutionModule:
                 return self._conditioned(out.clamp_(0, 255), category)
             provider = "quality"  # fewer than two trained members at this scale
         role = self.role(provider)
-        out = self._pass(self._net(role, scale, model), tiles, ensemble)
+        name = self._resolve(role, scale, model)
+        plus = "+" if ensemble and tiles.shape[1] == tiles.shape[2] else ""
+        # the pass as one span, named as fusion names its members
+        with profiling.span(f"super_resolution/{name}{plus}@x{scale}", tiles.device):
+            out = self._pass(self._net(role, scale, model), tiles, ensemble)
         trained = self._net_trained(role, scale, model)
         if provider == "hybrid" and not trained and self._net_trained("polish", 1):
             # the polish cleans up untrained (bicubic-tier) outputs; after a

@@ -8,10 +8,14 @@ then runs the ReLU, the scale and the residual add as more passes. The
 kernel (CUDA C++ for ``sm_90a`` in ``csrc/epilogue.cu``, built with
 ``nvcc`` at first use and bound with ``ctypes``, like the pyramid kernels)
 does them in one in-place pass over the conv's output ``y``, in one of
-three forms the arguments choose:
+five forms the arguments choose:
 
 - ``bias``: ``y + b``;
-- ``bias, relu=True``: ``relu(y + b)``;
+- ``bias, relu=True`` (or ``act="relu"``): ``relu(y + b)``;
+- ``bias, act="gelu"``: ``gelu(y + b)``, the exact (erf) GELU of HAT's
+  channel-attention block;
+- ``bias, act="lrelu"``: ``leaky_relu(y + b, 0.01)``, HAT's
+  ``conv_before_upsample``;
 - ``bias, residual=x, res_scale=s``: ``x + s * (y + b)``.
 
 It rounds as PyTorch's ops do, step by step, so both routes give the same
@@ -47,7 +51,10 @@ __all__ = ["LAUNCHES", "reset_launches", "conv_epilogue", "conv_epilogue_plain",
            "load_library"]
 
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "epilogue.cu")
-_FORMS = {"bias": 0, "relu": 1, "residual": 2}
+_FORMS = {"bias": 0, "relu": 1, "residual": 2, "gelu": 3, "lrelu": 4}
+# The activations a conv may end in, and LeakyReLU's slope (PyTorch's default).
+ACTS = ("relu", "gelu", "lrelu")
+LRELU_SLOPE = 0.01
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 # Kernel launches since the last reset; the plain version never counts.
@@ -95,24 +102,34 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-def _form(relu: bool, residual: Optional[torch.Tensor]) -> str:
-    if relu and residual is not None:
-        raise ValueError("the conv epilogue applies a ReLU or a residual, not both")
-    return "residual" if residual is not None else "relu" if relu else "bias"
+def _form(relu: bool, residual: Optional[torch.Tensor], act: Optional[str] = None) -> str:
+    if act is not None and act not in ACTS:
+        raise ValueError(f"unknown conv epilogue activation {act!r}; known: {ACTS}")
+    if relu and act not in (None, "relu"):
+        raise ValueError(f"the conv epilogue applies one activation, got relu and {act!r}")
+    act = act or ("relu" if relu else None)
+    if act and residual is not None:
+        raise ValueError("the conv epilogue applies an activation or a residual, not both")
+    return "residual" if residual is not None else act or "bias"
 
 
 def conv_epilogue_plain(y: torch.Tensor, bias: Optional[torch.Tensor] = None,
                         relu: bool = False, residual: Optional[torch.Tensor] = None,
-                        res_scale: float = 1.0) -> torch.Tensor:
+                        res_scale: float = 1.0, act: Optional[str] = None) -> torch.Tensor:
     """The unfused ops on a conv's output ``y`` (NCHW, any layout, any
     type): ``bias`` added in place as PyTorch adds a cuDNN conv's bias
-    (``None`` where the conv added it), then an in-place ReLU, or
-    ``residual + y * res_scale`` (``residual + y`` at a scale of 1)."""
-    _form(relu, residual)
+    (``None`` where the conv added it), then an in-place ReLU or LeakyReLU,
+    ``F.gelu``, or ``residual + y * res_scale`` (``residual + y`` at a
+    scale of 1)."""
+    form = _form(relu, residual, act)
     if bias is not None:
         y = y.add_(bias.reshape(1, -1, 1, 1))
-    if relu:
+    if form == "relu":
         y = F.relu(y, inplace=True)
+    elif form == "gelu":
+        y = F.gelu(y)
+    elif form == "lrelu":
+        y = F.leaky_relu(y, LRELU_SLOPE, inplace=True)
     if residual is not None:
         y = residual + (y if res_scale == 1 else y * res_scale)
     _record(False)
@@ -159,11 +176,11 @@ def _refusal(y: torch.Tensor, bias: torch.Tensor,
 
 def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, relu: bool = False,
                   residual: Optional[torch.Tensor] = None,
-                  res_scale: float = 1.0) -> torch.Tensor:
+                  res_scale: float = 1.0, act: Optional[str] = None) -> torch.Tensor:
     """The kernel, in place on ``y`` (a conv's fresh output, held by
     nothing else), on the current stream; returns ``y``. Raises
     ``ValueError`` on tensors it does not take."""
-    form = _form(relu, residual)
+    form = _form(relu, residual, act)
     reason = _refusal(y, bias, residual)
     if reason is not None:
         raise ValueError(f"conv_epilogue takes {reason}")

@@ -104,7 +104,7 @@ import torch
 from .blending import BlendingModule
 from .config import RESOLUTION_PRESETS, ModelConfig, SystemConfig
 from .io.image import load_image, save_image
-from .models import routing
+from .models import registry, routing
 from .models.lpips import LPIPSMetric
 from .models.prompts import PromptTemplateManager
 from .models.sr_module import SuperResolutionModule, scale_ladder
@@ -141,7 +141,8 @@ __all__ = ["PipelineCancelled", "PipelineConfig", "PipelineResult", "SuperResolu
 # 4608-px tiles in one chunk on the quality path.
 _CHUNK_BYTES = 40e9
 # Bytes per output pixel of a chunk: feature maps at the last step's input
-# resolution plus the float32 output (the reference's estimate, 160);
+# resolution plus the float32 output (the reference's estimate, 160, for
+# the CNNs; a net's own figure where the registry states a larger one);
 # the shrink provider's bicubic arm; a float32 accumulator and member
 # output for the fusion sum and the self-ensemble; the hybrid polish's
 # 64- and 32-channel bfloat16 maps at output resolution; and three live
@@ -523,14 +524,7 @@ class SuperResolutionPipeline:
         provider = self._serving_provider(ladder, provider, model,
                                           square=tiles.shape[1] == tiles.shape[2])
         sr.build_nets(ladder, provider, model, category)
-        conditioned = sr.conditions(category)
-        final_block = int(tiles.shape[1]) * int(np.prod(ladder)) if ladder else int(tiles.shape[1])
-        multipass = self.config.self_ensemble or provider == "fusion"
-        polished = provider == "hybrid" and sr.is_trained("espcn_polish", 1)
-        per_px = (_PX_BYTES + _SHRINK_PX_BYTES * (provider == "shrink")
-                  + _MULTIPASS_PX_BYTES * multipass + _POLISH_PX_BYTES * polished
-                  + _COND_PX_BYTES * conditioned)
-        chunk = max(1, int(_CHUNK_BYTES // (final_block * final_block * per_px)))
+        chunk = self._chunk_tiles(int(tiles.shape[1]), ladder, provider, model, category)
 
         def run_ladder(batch: torch.Tensor) -> torch.Tensor:
             mod = self._sr_for(batch.device)
@@ -553,6 +547,30 @@ class SuperResolutionPipeline:
         if self.dispatcher is not None and provider != "bicubic":
             return self.dispatcher.run_tiled(run_ladder, tiles)
         return run_ladder(tiles)
+
+    def _chunk_tiles(self, block: int, ladder: List[int], provider: str,
+                     model: Optional[str] = None, category: Optional[str] = None) -> int:
+        """Tiles of side ``block`` a chunk of the ladder takes: the chunk's
+        bytes over the live bytes of each tile's output. A net's own are
+        the CNNs' 160 per output pixel, or its registry entry's bytes per
+        input pixel (``in_px_bytes``) over the output pixels each of them
+        becomes by the ladder's end, whichever is larger; the provider's
+        extras are added."""
+        sr = self.sr_module
+        final_block = block * int(np.prod(ladder)) if ladder else block
+        net_px = float(_PX_BYTES)
+        for i, s in enumerate(ladder):
+            to_end = int(np.prod(ladder[i:]))
+            for name, _passes in sr.step_members(int(s), provider, model):
+                spec = registry.MODEL_REGISTRY.get(name)
+                if spec is not None:
+                    net_px = max(net_px, spec.in_px_bytes / (to_end * to_end))
+        multipass = self.config.self_ensemble or provider == "fusion"
+        polished = provider == "hybrid" and sr.is_trained("espcn_polish", 1)
+        per_px = (net_px + _SHRINK_PX_BYTES * (provider == "shrink")
+                  + _MULTIPASS_PX_BYTES * multipass + _POLISH_PX_BYTES * polished
+                  + _COND_PX_BYTES * sr.conditions(category))
+        return max(1, int(_CHUNK_BYTES // (final_block * final_block * per_px)))
 
     def _sr_for(self, device: torch.device) -> SuperResolutionModule:
         """The SR module that serves tiles on ``device``: the pipeline's on

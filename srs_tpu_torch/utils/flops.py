@@ -1,14 +1,16 @@
 """Analytic FLOP counting for the SR nets and MFU (port of
 ``srs_tpu/utils/flops.py``).
 
-Every registry net (ESPCN, EDSR, RCAN) runs each convolution at the
+Every registry CNN (ESPCN, EDSR, RCAN) runs each convolution at the
 input's resolution and ends in a pixel shuffle, so the convolutions of
 one pass cost ``2 * sum(kh * kw * cin * cout)`` FLOP per input pixel (a
 multiply-add is 2 FLOP). :func:`conv_flops_per_pixel` sums that over a
 state dict: 4-D convolution weights ``[cout, cin, kh, kw]`` and 2-D
 linear weights, the same products as the reference's flax kernels.
 Back-projection, the blend and the resizes are left out, as in the
-reference: they move bytes, not tensor-core work.
+reference: they move bytes, not tensor-core work. HAT counts its own
+(``nets.HAT.flops_per_pixel``): its linear layers and convolutions at the
+resolution each runs at, and its attention's two products.
 
 MFU = counted FLOP / seconds / the card's peak. The peaks are NVIDIA's
 published dense bfloat16 rates (data sheets, without sparsity) at the
@@ -72,14 +74,19 @@ def conv_flops_per_pixel(params: Mapping[str, Any]) -> float:
 
 def _net_flops_per_pixel(name: str, scale: int) -> float:
     """:func:`conv_flops_per_pixel` of the registry net ``name`` at
-    ``scale``; the shapes do not depend on the weights, so the net is
-    built without storage."""
+    ``scale``, or the net's own count where it has one (HAT: its bias
+    tables are no linear layers, and its attention products are no
+    weights); the shapes do not depend on the weights, so the net is built
+    without storage."""
     import torch
 
     from ..models.registry import _make
 
     with torch.device("meta"):
-        return conv_flops_per_pixel(_make(name, int(scale), torch.float32))
+        net = _make(name, int(scale), torch.float32)
+    if hasattr(net, "flops_per_pixel"):
+        return float(net.flops_per_pixel())
+    return conv_flops_per_pixel(net)
 
 
 def ladder_flops(

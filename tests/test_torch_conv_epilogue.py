@@ -188,12 +188,12 @@ def test_cpu_inputs_take_the_plain_route_and_the_counters_say_so(case):
 
 def _fake_launch(calls):
     """Stands in for the kernel: records its form and runs the plain ops."""
-    def launch(y, bias, relu=False, residual=None, res_scale=1.0):
-        calls.append(("residual" if residual is not None else "relu" if relu else "bias",
+    def launch(y, bias, relu=False, residual=None, res_scale=1.0, act=None):
+        calls.append(("residual" if residual is not None else act or ("relu" if relu else "bias"),
                       y.shape[1]))
         epilogue._record(True)
         with profiling.job():  # the plain ops' own count stays out of the caller's record
-            return epilogue.conv_epilogue_plain(y, bias, relu, residual, res_scale)
+            return epilogue.conv_epilogue_plain(y, bias, relu, residual, res_scale, act)
     return launch
 
 

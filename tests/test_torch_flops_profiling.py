@@ -27,13 +27,14 @@ import torch
 from srs_tpu.models.registry import MODEL_REGISTRY as JAX_REGISTRY
 from srs_tpu.utils import flops as jflops
 from srs_tpu.utils.profiling import StageTimer as JaxStageTimer
-from srs_tpu_torch.models.registry import MODEL_REGISTRY, convert_flax_params
+from srs_tpu_torch.models.registry import MODEL_REGISTRY, PORT_ONLY, convert_flax_params
 from srs_tpu_torch.utils import flops
 from srs_tpu_torch.utils.profiling import StageTimer, device_trace, trace_region
 
 RTOL = 1e-6
-NETS = [(name, s) for name in sorted(MODEL_REGISTRY) for s in ((1,) if name == "espcn_polish"
-                                                              else (2, 3, 4))]
+# The nets both packages have (HAT is the port's alone: tests/test_torch_hat.py).
+SHARED = sorted(set(MODEL_REGISTRY) - set(PORT_ONLY))
+NETS = [(name, s) for name in SHARED for s in ((1,) if name == "espcn_polish" else (2, 3, 4))]
 
 
 @pytest.fixture(autouse=True)
@@ -53,7 +54,8 @@ def _flax_shapes(name, scale):
 
 
 def test_registry_names_match_reference():
-    assert sorted(MODEL_REGISTRY) == sorted(JAX_REGISTRY)
+    assert SHARED == sorted(JAX_REGISTRY)
+    assert set(PORT_ONLY) <= set(MODEL_REGISTRY) and not set(PORT_ONLY) & set(JAX_REGISTRY)
 
 
 @pytest.mark.parametrize("name,scale", NETS)
